@@ -1,0 +1,205 @@
+"""One-site DMRG (counterpart of mpskit_tpu/algorithms/dmrg.py).
+
+The JAX package runs a sweep as one jit-compiled function of two
+`lax.scan`s. Here the scans are host loops over the sites, the site
+eigensolves are `linalg.lanczos.eigsh_smallest` with its host-side exits,
+and the tensor and environment stacks are updated in place where the JAX
+package donates its buffers."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config import Defaults, VERBOSE_ITER, matmul_precision
+from ..environments.finite import (
+    FiniteEnv, compute_left_envs, compute_right_envs, left_boundary,
+    right_boundary, stack_W,
+)
+from ..linalg.lanczos import eigsh_smallest
+from ..states.finitemps import FiniteMPS, physical_bond_dims, support_mask
+from ..tensors.ops import leftorth_hybrid, rightorth_hybrid
+from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
+from ..utils.dynamictols import updatetol
+from ..utils.logging import IterLog
+from ..utils.sync import to_host
+from .derivatives import ac_apply, ac_apply_fast
+
+
+@dataclasses.dataclass(frozen=True)
+class DMRG:
+    """One-site DMRG parameters (same fields and defaults as
+    mpskit_tpu.algorithms.dmrg.DMRG).
+
+    fast_qr: CholeskyQR2 for the gauge moves at full-rank bulk sites.
+    reorth: Lanczos reorthogonalization, "local1", "local" or "full".
+    cheap_galerkin: report the Lanczos Ritz-residual bound (>= the Galerkin
+    residual) as the per-site residual, saving one exact matvec per site."""
+
+    tol: float = 1e-10
+    maxiter: int = Defaults.maxiter
+    krylovdim: int = Defaults.krylovdim
+    eig_maxrestarts: int = 10
+    verbosity: int = Defaults.verbosity
+    finalize: Optional[Callable] = None
+    fast_qr: Optional[bool] = None
+    reorth: str = "local1"
+    cheap_galerkin: bool = False
+
+
+def bulk_rank_flags(L: int, d: int, D: int):
+    """(bulkL, bulkR) host boolean arrays: site i's left/right
+    orthogonalization panel has full rank D (safe for CholeskyQR2)."""
+    dims = physical_bond_dims(L, d, D)
+    bulkL = np.array([(dims[i] * d >= D) and (dims[i + 1] == D)
+                      for i in range(L)])
+    bulkR = np.array([(dims[i] == D) and (dims[i + 1] * d >= D)
+                      for i in range(L)])
+    return bulkL, bulkR
+
+
+def _galerkin_left(AL, y):
+    """||(1 - AL AL^dag) y|| after a left-orthogonal split."""
+    z = torch.einsum("lpm,lpr->mr", AL.conj(), y)
+    return torch.linalg.vector_norm(y - torch.einsum("lpm,mr->lpr", AL, z))
+
+
+def _galerkin_right(AR, y):
+    z = torch.einsum("mpr,lpr->lm", AR.conj(), y)
+    return torch.linalg.vector_norm(y - torch.einsum("lm,mpr->lpr", z, AR))
+
+
+def _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth, use_fast):
+    return eigsh_smallest(
+        lambda x: ac_apply(GL, W, GR, x), AC, m, restarts, inner_tol,
+        reorth=reorth,
+        matvec_fast=(lambda x: ac_apply_fast(GL, W, GR, x))
+        if use_fast else None)
+
+
+def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
+                     restarts: int, GL0=None, GRL=None, masks=None,
+                     bulk_flags=None, reorth: str = "local1",
+                     use_fast: bool = True, cheap_galerkin: bool = False):
+    """One full DMRG sweep (L2R over sites 0..L-2, R2L over L-1..1),
+    starting and ending with center = 0.
+
+    ALs, ARs and GRs are updated IN PLACE (where the JAX package donates
+    them) and returned, with the new center tensor, the eigenvalue at site
+    1 (the last solved), the largest per-site residual and the solver
+    diagnostics (n_unconverged, worst_residual). GL0/GRL override the
+    open-chain boundary environments; masks is the (L, D, d, D) support
+    mask, bulk_flags the host (bulkL, bulkR) of `bulk_rank_flags`."""
+    L, D = ALs.shape[0], ALs.shape[1]
+    w = Ws.shape[1]
+    dtype, device = AC.dtype, AC.device
+    if GL0 is None:
+        GL0 = left_boundary(w, D, dtype, device)
+    if GRL is None:
+        GRL = right_boundary(w, D, dtype, device)
+    if masks is None:
+        maskf = torch.ones((L, 1, 1, 1), dtype=dtype, device=device)
+    else:
+        maskf = masks.to(dtype)
+    if bulk_flags is None:
+        bulkL = bulkR = np.zeros(L, bool)
+    else:
+        bulkL, bulkR = bulk_flags
+
+    eps_dev = []  # exact Galerkin residuals, read once at the end
+    lams, resids, convs = [], [], []
+
+    # ---- left-to-right: solve sites 0..L-2 ----
+    GLs = torch.empty((L,) + tuple(GL0.shape), dtype=dtype, device=device)
+    GL = GL0
+    for i in range(L - 1):
+        GLs[i] = GL
+        W, GR = Ws[i], GRs[i + 1]
+        res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
+                          use_fast)
+        ACp = res.eigenvector * maskf[i]
+        ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
+        AL, C = leftorth_hybrid(ACp, bool(bulkL[i]))
+        AL = AL * maskf[i]
+        if not cheap_galerkin:
+            eps_dev.append(_galerkin_left(AL, ac_apply(GL, W, GR, ACp)))
+        GL = transfer_left_mpo(GL, W, AL, AL)
+        AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
+        ALs[i] = AL
+        lams.append(res.eigenvalue)
+        resids.append(res.residual)
+        convs.append(res.converged)
+    GLs[L - 1] = GL
+
+    # ---- right-to-left: solve sites L-1..1 ----
+    GR = GRL
+    for i in range(L - 1, 0, -1):
+        GRs[i + 1] = GR
+        W, GL = Ws[i], GLs[i]
+        res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
+                          use_fast)
+        ACp = res.eigenvector * maskf[i]
+        ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
+        C, AR = rightorth_hybrid(ACp, bool(bulkR[i]))
+        AR = AR * maskf[i]
+        if not cheap_galerkin:
+            eps_dev.append(_galerkin_right(AR, ac_apply(GL, W, GR, ACp)))
+        GR = transfer_right_mpo(GR, W, AR, AR)
+        AC = torch.einsum("lpm,mr->lpr", ALs[i - 1], C)
+        ARs[i] = AR
+        lams.append(res.eigenvalue)
+        resids.append(res.residual)
+        convs.append(res.converged)
+    # fresh right envs for the next sweep: GRs[1] = final carry; GRs[0] is
+    # unused and holds the same (as in the JAX package)
+    GRs[1] = GR
+    GRs[0] = GR
+
+    lam = lams[-1]  # eigenvalue at site 1 (last solved)
+    eps = max(to_host(*eps_dev)) if eps_dev else max(resids)
+    diag = (sum(not c for c in convs), max(resids))
+    return ALs, ARs, AC, GRs, lam, eps, diag
+
+
+def find_groundstate_dmrg(psi: FiniteMPS, H, alg: DMRG = DMRG()):
+    """Run one-site DMRG. Returns (psi, envs, epsilon)."""
+    L, D, d = psi.length, psi.D, psi.physicaldim
+    dtype, device = psi.dtype, psi.device
+    psi = psi.move_center(0)
+    Ws = stack_W(H, L, dtype, device)
+    w = Ws.shape[1]
+    masks = torch.as_tensor(support_mask(L, d, D), device=device)
+    bulk_flags = bulk_rank_flags(L, d, D) if alg.fast_qr else None
+
+    log = IterLog("DMRG", alg.verbosity)
+    log.init()
+    # copies: the sweep updates its tensor arguments in place; the caller's
+    # psi (and any state a finalize hook returns) must stay valid
+    ALs, ARs, AC = psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone()
+    eps = 1.0
+    lam = 0.0
+    it = 0
+    with matmul_precision():
+        GRs = compute_right_envs(ARs, Ws, right_boundary(w, D, dtype, device))
+        for it in range(1, alg.maxiter + 1):
+            inner_tol = updatetol(eps, it)
+            ALs, ARs, AC, GRs, lam, eps, diag = _dmrg_sweep_impl(
+                ALs, ARs, AC, Ws, GRs, inner_tol, alg.krylovdim,
+                alg.eig_maxrestarts, masks=masks, bulk_flags=bulk_flags,
+                reorth=alg.reorth, cheap_galerkin=alg.cheap_galerkin)
+            psi = FiniteMPS(ALs, ARs, AC, 0)
+            if alg.finalize is not None:
+                psi = alg.finalize(it, psi, H) or psi
+                ALs, ARs, AC = psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone()
+            log.solver_warn(it, diag, inner_tol)
+            if alg.verbosity >= VERBOSE_ITER:
+                log.conv(it, lam, eps)
+            if eps < alg.tol:
+                break
+        else:
+            log.cancel(it, lam, eps)
+        GLs = compute_left_envs(ALs, Ws, left_boundary(w, D, dtype, device))
+    return psi, FiniteEnv(GLs, GRs), eps
