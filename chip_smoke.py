@@ -5,10 +5,15 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: compiles kernel K1 (kernels/csrc/ac_apply_bf16.cu) with nvcc;
+  2. build: compiles kernel K1 (kernels/csrc/ac_apply_bf16.cu) with nvcc
+     and prints what ptxas reports (registers, spills, wgmma warnings);
   3. K1 check: the kernel against its plain PyTorch version and against the
-     exact f32 matvec at D=512 and at a ragged D=200 (w=3, d=2), and both
-     timed with CUDA events at D=512;
+     exact f32 matvec at D=512, 200, 64 (one tile), 520 (one past a tile
+     edge) with w=3, d=2, at the spin-1 shape D=256, w=5, d=3, and on
+     the kernel's general path (D=256, w=13, d=2, past its widest fused
+     tier); two launches at D=512 bit-identical; at D=512 the kernel, its
+     plain version, the exact f32 matvec and a bf16 torch.matmul yardstick
+     timed with CUDA events in turns, beside the kernel's bound;
   4. f64 parity: DMRG on TFIM L=16 D=32 in float64 against the closed-form
      ground energy (covers QR of the padded rank-deficient edge panels);
   5. the slice at full width: find_groundstate with DMRG(krylovdim=10,
@@ -33,6 +38,11 @@ K1_SOURCE = "mpskit_tpu_torch/kernels/csrc/ac_apply_bf16.cu"
 K1_REPLACES = "scripts/exp_r5_bf16_matvec.py:66"
 K1_TOL_PLAIN = 1e-3   # same rounding points; f32 summation order differs
 K1_TOL_EXACT = 1e-2   # bf16 operands: ~3e-3 expected
+K1_SHAPES = ((512, 2, 3), (200, 2, 3), (64, 2, 3), (520, 2, 3), (256, 3, 5),
+             (256, 2, 13))
+# H100 SXM at 700 W (NVIDIA's data sheet): dense bf16 tensor-core and f32
+# FMA peaks, HBM3 bandwidth
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 E_TOL_F64 = 1e-8      # absolute, float64
 E_TOL_F32 = 1e-5      # relative, float32 with a bf16 first restart
 
@@ -64,6 +74,50 @@ def cuda_time_ms(fn, n: int) -> float:
     return start.elapsed_time(stop) / n
 
 
+def host_time_ms(fn, n: int) -> float:
+    """Host time per call: n calls enqueued back to back, without waiting
+    for the card (a call that the host cannot enqueue faster than the card
+    runs it leaves the card waiting)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
+
+
+def graph_time_ms(fn, n: int) -> float:
+    """Device time per call: n calls captured in a CUDA graph and replayed,
+    so that the host's launch work is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_time_ms(graph.replay, 3) / n
+
+
+def k1_bound(D: int, d: int, w: int):
+    """Least time of one matvec on the card (ms) and what bounds it: the
+    largest of the two products on the bf16 tensor cores, the middle on the
+    f32 FMA units (other units, so the two overlap), and the f32 operands
+    GL, W, GR, x read once and y written once."""
+    ops = max(2 * (2 * w * D * D * d * D) / PEAK_BF16,
+              2 * w * w * d * d * D * D / PEAK_F32)
+    mem = 4 * (2 * w * D * D + w * w * d * d + 2 * D * d * D) / PEAK_BYTES
+    return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
+
+
 def phase_device():
     import torch
 
@@ -88,7 +142,7 @@ def phase_build():
     log(f"[build] K1 built and loaded in {time.perf_counter() - t0:.1f} s")
     for report in build.BUILD_DIR.glob("libac_apply_bf16_*.ptxas.txt"):
         for line in report.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("registers", "spill", "wgmma")):
                 log(f"[build] ptxas: {line.strip()}")
 
 
@@ -101,13 +155,13 @@ def phase_k1():
     )
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    w, d = 3, 2
     out = {"max_abs_err": 0.0}
-    with matmul_precision():
-        for D in (512, 200):
-            def randn(*shape):
-                return torch.randn(shape, generator=gen, device="cuda")
 
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    with matmul_precision():
+        for D, d, w in K1_SHAPES:
             GL, GR = randn(w, D, D) / D, randn(w, D, D) / D
             W, x = randn(w, w, d, d), randn(D, d, D)
             y = ac_apply_bf16(GL, W, GR, x)
@@ -119,26 +173,67 @@ def phase_k1():
             rel_plain = float((y - y_plain).norm() / y_plain.norm())
             rel_exact = float((y - y_exact).norm() / y_exact.norm())
             abs_err = float((y - y_plain).abs().max())
-            log(f"[k1] D={D}: rel err vs plain {rel_plain:.3e} "
+            log(f"[k1] D={D} d={d} w={w}: rel err vs plain {rel_plain:.3e} "
                 f"(tol {K1_TOL_PLAIN}), vs exact f32 {rel_exact:.3e} "
                 f"(tol {K1_TOL_EXACT}), max abs err vs plain {abs_err:.3e}")
             if not (rel_plain <= K1_TOL_PLAIN and rel_exact <= K1_TOL_EXACT):
                 raise RuntimeError(f"K1 disagrees with its references at D={D}")
             out["max_abs_err"] = max(out["max_abs_err"], abs_err)
             if D == 512:
-                # plain, kernel, kernel, plain: both sides see the same drift
-                n = 50
-                times = [cuda_time_ms(lambda: f(GL, W, GR, x), n)
-                         for f in (ac_apply_bf16_reference, ac_apply_bf16,
-                                   ac_apply_bf16, ac_apply_bf16_reference)]
-                out["plain_ms"] = (times[0] + times[3]) / 2
-                out["ms"] = (times[1] + times[2]) / 2
-                exact_ms = cuda_time_ms(lambda: ac_apply(GL, W, GR, x), n)
-                log(f"[k1] D=512 w=3 d=2 time per matvec: kernel "
-                    f"{out['ms']:.4f} ms, plain bf16 version "
-                    f"{out['plain_ms']:.4f} ms, exact f32 ac_apply "
-                    f"{exact_ms:.4f} ms (runs: {', '.join(f'{t:.4f}' for t in times)})")
+                out.update(_k1_times(GL, W, GR, x, y, gen))
     return out
+
+
+def _k1_times(GL, W, GR, x, y, gen):
+    """Determinism and times of K1 at the main path's shape, in one call.
+    The library yardstick is the kernel's two products as bf16 torch.matmul
+    calls on bf16 copies made beforehand (the batched GL.x of stage 1 and
+    the (dD x wD).(wD x D) of stage 3): not the same function (no middle,
+    no rounding of t2), and never called by the port."""
+    import torch
+    from mpskit_tpu_torch.algorithms.derivatives import ac_apply
+    from mpskit_tpu_torch.kernels.ac_apply import (
+        ac_apply_bf16, ac_apply_bf16_reference,
+    )
+
+    w, D, d = GL.shape[0], x.shape[0], x.shape[1]
+    y2 = ac_apply_bf16(GL, W, GR, x)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y2):
+        raise RuntimeError("two K1 launches on the same inputs differ")
+    log("[k1] D=512: two launches are bit-identical")
+
+    bf = torch.bfloat16
+    GLb, Xb = GL.to(bf), x.reshape(D, d * D).to(bf)
+    T2b = torch.randn((d * D, w * D), generator=gen, device="cuda").to(bf)
+    GRb = GR.permute(0, 2, 1).reshape(w * D, D).to(bf)  # [(b, n), r]
+    fns = {
+        "plain_ms": lambda: ac_apply_bf16_reference(GL, W, GR, x),
+        "ms": lambda: ac_apply_bf16(GL, W, GR, x),
+        "exact_ms": lambda: ac_apply(GL, W, GR, x),
+        "library_ms": lambda: (torch.matmul(GLb, Xb), torch.matmul(T2b, GRb)),
+    }
+    # in turns, mirrored, so that every version sees the same drift
+    order = list(fns) + list(fns)[::-1]
+    runs = {k: [] for k in fns}
+    for k in order:
+        runs[k].append(cuda_time_ms(fns[k], 50))
+    t = {k: sum(v) / len(v) for k, v in runs.items()}
+    t["device_ms"] = graph_time_ms(fns["ms"], 50)
+    t["host_ms"] = host_time_ms(fns["ms"], 50)
+    t["bound_ms"], t["bound_by"] = k1_bound(D, d, w)
+    log(f"[k1] D=512 w={w} d={d} time per matvec (CUDA events, 50 calls, in "
+        f"turns): kernel {t['ms']:.4f} ms, plain bf16 version "
+        f"{t['plain_ms']:.4f} ms, exact f32 ac_apply {t['exact_ms']:.4f} ms, "
+        f"bf16 torch.matmul yardstick {t['library_ms']:.4f} ms; kernel in a "
+        f"CUDA graph {t['device_ms']:.4f} ms, host time to enqueue a call "
+        f"{t['host_ms']:.4f} ms (runs: "
+        + "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in runs[k])
+                    for k in runs) + ")")
+    log(f"[k1] bound {t['bound_ms']:.5f} ms ({t['bound_by']}): "
+        f"{t['bound_ms'] / t['ms']:.1%} of it reached per call, "
+        f"{t['bound_ms'] / t['device_ms']:.1%} in the graph")
+    return t
 
 
 def phase_f64():
@@ -227,7 +322,9 @@ def main():
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"]}]}))
+        "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+        "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
+        "exact_ms": k1["exact_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

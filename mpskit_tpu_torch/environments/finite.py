@@ -12,7 +12,7 @@ import torch
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 
 
-def left_boundary(w: int, D: int, dtype, device="cpu"):
+def left_boundary(w: int, D: int, dtype, device):
     """(w, D, D) boundary left environment: FSM level 0, rank 1 in the
     (padded) size-1 boundary bond."""
     GL = torch.zeros((w, D, D), dtype=dtype, device=device)
@@ -20,7 +20,7 @@ def left_boundary(w: int, D: int, dtype, device="cpu"):
     return GL
 
 
-def right_boundary(w: int, D: int, dtype, device="cpu"):
+def right_boundary(w: int, D: int, dtype, device):
     GR = torch.zeros((w, D, D), dtype=dtype, device=device)
     GR[w - 1, 0, 0] = 1.0
     return GR
@@ -65,11 +65,11 @@ class FiniteEnv:
         return self.GRs[i + 1]
 
 
-def stack_W(H, L: int, dtype=None, device="cpu"):
+def stack_W(H, L: int, dtype, device):
     """The (period, w, w, d, d) host FSM array of an MPOHamiltonian tiled to
     length L and moved to `device` as an (L, w, w, d, d) tensor of `dtype`
-    (a real dtype keeps the real part, as `astype` does in the JAX
-    package)."""
+    (None keeps the FSM's own; a real dtype keeps the real part, as
+    `astype` does in the JAX package)."""
     W = H.W
     reps = -(-L // W.shape[0])
     W = np.tile(W, (reps, 1, 1, 1, 1))[:L]

@@ -12,8 +12,9 @@ from .states.finitemps import FiniteMPS
 
 
 def finite_mps_from_numpy(ALs, ARs, AC, center: int,
-                          device="cpu") -> FiniteMPS:
-    """FiniteMPS from stacked (L, D, d, D) ALs/ARs and a (D, d, D) AC."""
+                          device="cuda") -> FiniteMPS:
+    """FiniteMPS from stacked (L, D, d, D) ALs/ARs and a (D, d, D) AC, on
+    the card unless `device` says otherwise."""
     def t(a):
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 

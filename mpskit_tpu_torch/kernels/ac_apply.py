@@ -1,8 +1,9 @@
 """Kernel K1, the fused one-site effective-Hamiltonian matvec in bf16
 (csrc/ac_apply_bf16.cu), its wrapper and its plain PyTorch version.
 
-`launches` counts the wrapper's kernel launches; a run can reset it and
-read it to show that its main path went through the kernel."""
+`launches` counts the wrapper's calls that launched the kernel (one per
+call, however many passes run inside); a run can reset it and read it to
+show that its main path went through the kernel."""
 
 from __future__ import annotations
 
@@ -14,7 +15,6 @@ import torch
 from .build import load_library
 
 launches = 0
-
 
 def ac_apply_bf16_reference(GL, W, GR, x):
     """Plain PyTorch version of K1 with the kernel's rounding points: GL, x
@@ -32,12 +32,19 @@ def ac_apply_bf16_reference(GL, W, GR, x):
 @functools.cache
 def _library():
     lib = load_library("ac_apply_bf16")
-    lib.ac_apply_bf16.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                                  + [ctypes.c_void_p])
+    lib.ac_apply_bf16_scratch_bytes.argtypes = [ctypes.c_int] * 3
+    lib.ac_apply_bf16_scratch_bytes.restype = ctypes.c_size_t
+    lib.ac_apply_bf16.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_size_t]
+                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.ac_apply_bf16.restype = ctypes.c_int
-    lib.ac_apply_bf16_nsplit.argtypes = [ctypes.c_int]
-    lib.ac_apply_bf16_nsplit.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _scratch_bytes(w: int, d: int, D: int) -> int:
+    """Bytes of device scratch that one launch at (w, d, D) needs; the CUDA
+    source lays the buffers out and picks the kernel's path."""
+    return _library().ac_apply_bf16_scratch_bytes(w, d, D)
 
 
 def _check(GL, W, GR, x):
@@ -70,21 +77,16 @@ def ac_apply_bf16(GL, W, GR, x):
     if x.device.type == "cpu":
         return ac_apply_bf16_reference(GL, W, GR, x)
     w, d, D = _check(GL, W, GR, x)
-    lib = _library()
+    nbytes = _scratch_bytes(w, d, D)
     with torch.cuda.device(x.device):
-        # the kernel splits the contracted index n across blocks; each
-        # split writes a partial y into this scratch, summed by pass 2
-        nsplit = lib.ac_apply_bf16_nsplit(D)
-        if nsplit <= 0:
-            raise RuntimeError(f"ac_apply_bf16: no split plan for D={D} "
-                               f"(CUDA error {-nsplit})")
+        # torch.cuda.current_stream() builds a Stream object on every call;
+        # the raw handle is what the launch takes
+        stream = torch._C._cuda_getCurrentRawStream(x.device.index)
         y = torch.empty((D, d, D), dtype=torch.float32, device=x.device)
-        partials = torch.empty((nsplit, D, d, D), dtype=torch.float32,
-                               device=x.device)
-        err = lib.ac_apply_bf16(GL.data_ptr(), W.data_ptr(), GR.data_ptr(),
-                                x.data_ptr(), y.data_ptr(),
-                                partials.data_ptr(), w, d, D,
-                                torch.cuda.current_stream().cuda_stream)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+        err = _library().ac_apply_bf16(
+            GL.data_ptr(), W.data_ptr(), GR.data_ptr(), x.data_ptr(),
+            y.data_ptr(), scratch.data_ptr(), nbytes, w, d, D, stream)
     if err != 0:
         raise RuntimeError(f"ac_apply_bf16: kernel launch failed with CUDA "
                            f"error {err} (w={w}, d={d}, D={D})")

@@ -1,4 +1,4 @@
-// K1: the fused one-site effective-Hamiltonian matvec in bf16.
+// K1: the fused one-site effective-Hamiltonian matvec in bf16, for Hopper.
 //
 //   y[x,s,r] = sum_{a,b,y,t,n} GL[a,x,y] X[y,t,n] W[a,b,s,t] GR[b,r,n]
 //
@@ -11,273 +11,735 @@
 // A product of two bf16 values is exact in f32, so only the order of the
 // f32 sums differs from the plain version (kernels/ac_apply.py).
 //
-// Bound. At D=512, w=3, d=2 one matvec is 2 * 2*w*D^2*dD = 3.2 GFLOP over
-// at least 10.5 MB of f32 operands (GL, GR, X, Y): ~300 flop/byte, at the
-// card's bf16 ridge.
+// Bound. At D=512, w=3, d=2 the two products are 2 * 2*w*D^2*dD = 3.22
+// GFLOP of bf16 tensor-core work (3.26 us at 989 TFLOP/s) and the middle
+// 2*w^2*d^2*D^2 = 0.019 GFLOP of f32 FMA (0.28 us at 67 TFLOP/s, on other
+// units, so it overlaps). The f32 operands GL, GR, X and Y are 10.5 MB,
+// 3.13 us at 3.35 TB/s. The least time is the largest of the three, 3.26
+// us: the kernel is bound by operations, close to the ridge, so it has to
+// run its products on wgmma and keep its intermediates out of device
+// memory.
 //
-// Design. The TPU kernel keeps t1 for a 128-row bra tile in VMEM
-// (w*128*d*D f32 = 1.5 MB at D=512), far beyond the 227 KB of shared
-// memory a block can use, and runs its D/128 = 4 grid steps in order, one
-// after the other. Here the contracted index n is split across blocks,
-// with a second pass that sums the splits:
-//   pass 1: block (split s, bra tile of TX=16 rows) takes the n-range of
-//     its split in chunks of TN=64. Per chunk it computes t1 for its rows
-//     (stage 1, streamed over y in chunks of TY=64) and the middle into
-//     t2 (stage 2, rounded to bf16), and keeps t2 of its whole n-range in
-//     shared memory. It then walks all ket columns r in tiles of TR=128,
-//     contracting t2 against GR (stage 3) into a partial y of its split.
-//   pass 2: y = the sum of the partial y's over the splits (in a fixed
-//     order, so the result is deterministic).
-// Nothing is computed twice, GL and X are read once per block, and at
-// D=512 the grid has 8 splits x 32 bra tiles = 256 blocks for the 132 SMs
-// (two resident per SM). The price is the partials: nsplit * D*d*D f32
-// written and read once (16 MB at D=512). Stages 1 and 3 run on the bf16
-// tensor cores through WMMA (16x16x16 bf16 -> f32; the rows of stage 3
-// are the (x, s) pairs, so TX*d is a multiple of 16 for any d); stage 2 is
-// f32 FMA. Accumulator tiles live in shared memory, each owned by one warp.
-// Any D, w, d is taken: out-of-range rows and columns are zero-filled on
-// load and masked on store. wgmma and TMA loads are later work.
+// Design: one cooperative launch on the caller's stream runs its passes
+// with a grid-wide barrier between them, since each launch costs the host
+// about as much time as a pass takes on the card. No atomics and no split
+// of a contracted index, so two launches give bit-identical y. The fused
+// path below runs where a tier of K1_TIERS holds t1 in registers (d = 2
+// with w <= 12, d = 3 with w <= 8); every other (w, d) takes the general
+// path at the end of this note.
+//  1. convert: bf16 copies of GL, GR and X into scratch, zero-padded to
+//     Dp = ceil(D/64)*64, with X transposed to Xt[t][n][y]. Every operand
+//     of the two products is then K-major (the contracted index
+//     contiguous), every tile is full and 16-byte aligned, and only the
+//     final store of y is masked.
+//  2. stage 1 + middle: one warpgroup per (64 rows x, TN columns n) keeps
+//     t1[a][t] for all (a, t) as w*d wgmma accumulators of 64 x TN in
+//     registers. The contraction over y runs in chunks (64 y's, a) through
+//     6-stage rings of 128B-swizzled tiles in shared memory: cp.async keeps
+//     four chunks in flight ahead of the one being multiplied, and the
+//     previous chunk's wgmma group is still running, which holds the sixth
+//     stage. The Xt tiles of a y-chunk are loaded once for its w chunks.
+//     Every accumulator has the same thread <-> (x, n) map, so the middle
+//     contraction over (a, t) is FMAs inside each thread; its result is
+//     rounded to bf16 and stored as T2, a (Dp*d) x (w*Dp) row-major matrix
+//     (3 MB at D=512, which stays in L2).
+//  3. stage 3: y (d*Dp x Dp) = T2 GRb^T, a plain wgmma GEMM over 64 x 64
+//     tiles with K = w*Dp, through the same kind of ring.
+// The rings are fed by cp.async rather than TMA: every operand of the two
+// products is scratch that pass 1 wrote, so 16-byte copies made by the
+// warpgroup itself need no tensor maps (one cuTensorMapEncodeTiled per
+// buffer) and no host work per call. What limits stages 1 and 3 at D=512
+// is the rate at which L2 feeds these 64-wide tiles to the SMs, not wgmma:
+// a build with the wgmma instructions taken out ran almost as long. TN and
+// the accumulator count are template arguments picked from (w, d) so that
+// the accumulators take 96 registers a thread and are indexed only by
+// compile-time constants.
+// The general path, for any (w, d): stage 1 as a plain wgmma GEMM per a,
+// T1[a] (Dp x d*Dp, f32) = GLb[a] Xt^T, written to scratch; the middle as
+// its own pass over (x, n), in the same order of f32 sums; then stage 3 as
+// above. It writes t1 to device memory and reads it back (w*d*Dp^2 f32
+// each way), which a fused tier keeps in registers; the function and its
+// rounding points are the same.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <mma.h>
+#include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int TX = 16;    // bra rows x per block (one WMMA M tile of x)
-constexpr int TR = 128;   // ket columns r per stage-3 tile
-constexpr int TN = 64;    // contracted n per chunk
-constexpr int TY = 64;    // contracted y per stage-1 chunk
-constexpr int PAD = 8;    // bf16 row padding (16 bytes) against bank conflicts
-constexpr int MAX_CHUNKS = 4;  // n-chunks per split at most (bounds sT2)
-constexpr int NWARP = 8;
-constexpr int NT = 32 * NWARP;
+constexpr int TILE = 64;                     // rows of a tile; K chunk (128 B)
+constexpr int TILE_BYTES = TILE * TILE * 2;  // one 64 x 64 bf16 tile
+constexpr int NT = 128;                      // one warpgroup
+constexpr int STAGES = 6;                    // depth of the shared-memory ring
+// chunks loaded ahead of the one being multiplied: one more stage is held by
+// the wgmma group still in flight from the previous chunk
+constexpr int AHEAD = STAGES - 2;
 
-constexpr int LDGL = TY + PAD;  // sGL[a][x][yy]
-constexpr int LDGR = TN + PAD;  // sGR[b][r][nn]
-
-__host__ __device__ inline size_t up32(size_t bytes) {
-  return (bytes + 31) / 32 * 32;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Offsets in bytes of the shared arrays; every array starts on a 32-byte
-// boundary, as WMMA loads and stores need. Stage 1's buffers (sT1, sGL,
-// sX) and stage 3's (sGR, sY) are never live together and share memory.
-struct Layout {
-  size_t sW, sT2, sT1, sGL, sX, sGR, sY, total;
-  int ldx, ldt2;  // row lengths of sX[yy][t*TN+nn] and sT2[b][x*d+s][n]
-  __host__ __device__ Layout(int w, int d, int ns_len) {
-    ldx = d * TN + PAD;
-    ldt2 = ns_len + PAD;
-    size_t o = 0;
-    sW = o;  o += up32(sizeof(float) * w * w * d * d);
-    sT2 = o; o += up32(sizeof(bf16) * w * TX * d * ldt2);
-    const size_t shared = o;
-    sT1 = o; o += up32(sizeof(float) * w * TX * d * TN);
-    sGL = o; o += up32(sizeof(bf16) * w * TX * LDGL);
-    sX = o;  o += up32(sizeof(bf16) * TY * ldx);
-    const size_t end1 = o;
-    o = shared;
-    sGR = o; o += up32(sizeof(bf16) * w * TR * LDGR);
-    sY = o;  o += up32(sizeof(float) * TX * d * TR);
-    total = o > end1 ? o : end1;
+// Byte offset of 16-byte chunk `ch` (0..7) of row `row` in a tile of
+// 128-byte rows, 128B-swizzled as wgmma's B128 layout reads it (the tile
+// starts on a 1024-byte boundary).
+__device__ __forceinline__ uint32_t swz(int row, int ch) {
+  return row * 128 + ((ch ^ (row & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// cp.async writes shared memory through the generic proxy and wgmma reads
+// it through the async proxy: each thread fences its own copies before the
+// barrier that publishes them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma descriptor of a K-major 128B-swizzled tile at shared address
+// `addr`: rows of 128 B, groups of 8 rows 1024 B apart (SBO); the leading
+// offset is unused by this layout. Stepping K by 16 inside the 128-byte row
+// adds 32 bytes to `addr`.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that owns them.
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, f32) = A (64 x 16) B (N x 16)^T + (acc ? d : 0), both bf16 and
+// K-major in shared memory. Register i of thread (warp, lane) of the
+// warpgroup holds row 16*warp + lane/4 + 8*((i/2)%2), column 8*(i/4) +
+// 2*(lane%4) + i%2. The first product into d passes acc = 0 instead of
+// zeroing d: an instruction other than wgmma that defines accumulator
+// registers while a wgmma group is in flight makes ptxas serialize them.
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a,
+                                      uint64_t b, int acc);
+
+template <>
+__device__ __forceinline__ void wgmma<8>(float (&d)[4], uint64_t a,
+                                         uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a,
+                                          uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// The dynamic shared memory, moved up to a 1024-byte boundary (the launch
+// asks for 1 KB more than it uses), as the 128B swizzle needs.
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  const uint32_t a = smem_u32(raw);
+  return raw + (((a + 1023u) & ~1023u) - a);
+}
+
+// ---- pass 1: bf16 copies, zero-padded to Dp, X transposed ----------------
+// Work item (z, 32 x 32 tile) of the Dp x Dp slabs: z < w: GL[z]; z < 2w:
+// GR[z-w]; else Xt[z-2w]. Zeros outside D x D. Each thread loads its eight
+// values before it stores any. `tile` is 32 x 33 floats of shared memory.
+__device__ void convert(const float* __restrict__ GL,
+                        const float* __restrict__ GR,
+                        const float* __restrict__ X, bf16* __restrict__ GLb,
+                        bf16* __restrict__ GRb, bf16* __restrict__ Xt, int w,
+                        int d, int D, int Dp, float (*tile)[33]) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;  // 32 x 4
+  const int nt = Dp / 32, items = (2 * w + d) * nt * nt;
+  const size_t slab = (size_t)D * D, slab_p = (size_t)Dp * Dp;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int z = item / (nt * nt), r0 = (item / nt) % nt * 32,
+              c0 = item % nt * 32;
+    float v[8];
+    if (z < 2 * w) {
+      const float* src = z < w ? GL + z * slab : GR + (z - w) * slab;
+      bf16* dst = z < w ? GLb + z * slab_p : GRb + (z - w) * slab_p;
+      const int col = c0 + tx;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int row = r0 + ty + 4 * k;
+        v[k] = (row < D && col < D) ? src[(size_t)row * D + col] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        dst[(size_t)(r0 + ty + 4 * k) * Dp + col] = __float2bfloat16_rn(v[k]);
+    } else {
+      // Xt[t][n][y] = X[y][t][n]: n in [r0, r0+32), y in [c0, c0+32); read
+      // along n, write along y
+      const int t = z - 2 * w;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int y = c0 + ty + 4 * k, n = r0 + tx;
+        v[k] = (y < D && n < D) ? X[((size_t)y * d + t) * D + n] : 0.f;
+      }
+      __syncthreads();  // the previous item's readers of `tile` are done
+#pragma unroll
+      for (int k = 0; k < 8; ++k) tile[ty + 4 * k][tx] = v[k];
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int n = r0 + ty + 4 * k, y = c0 + tx;
+        Xt[((size_t)t * Dp + n) * Dp + y] =
+            __float2bfloat16_rn(tile[tx][ty + 4 * k]);
+      }
+    }
   }
+}
+
+// ---- pass 2: stage 1 and the middle ---------------------------------------
+// Tile (n0, x0): t1[a][t] (64 x TN) for a < w <= WMAX, t < DD, over the
+// chunks c = yc*w + a of 64 y's. Chunk c takes a stage of the GL ring, GL[a]
+// rows x0.. (64 x 64); chunk (yc, 0) also loads, into the Xt ring, Xt[t]
+// rows n0.. (TN x 64) for each t, which serve all w chunks of yc. Then
+// T2[x*d + s][b*Dp + n] = bf16(sum_{a,t} W[a,b,s,t] t1[a][t][x][n]), with W
+// in shared memory (sW).
+template <int TN, int DD, int WMAX>
+struct Stage1 {
+  static constexpr int B_BYTES = TN * 128;       // one Xt[t] tile
+  static constexpr int XT_BYTES = DD * B_BYTES;  // a stage of the Xt ring
+  // the two rings, then sW
+  static constexpr int RING_BYTES = STAGES * (TILE_BYTES + XT_BYTES);
 };
 
-// The n-splits at width D on a card with `sms` SMs: about two blocks per
-// SM, each split a whole number of TN-chunks, at most MAX_CHUNKS of them.
-void split_plan(int D, int sms, int* nsplit, int* ns_len) {
-  const int xtiles = (D + TX - 1) / TX;
-  const int chunks = (D + TN - 1) / TN;
-  const int target = (2 * sms + xtiles - 1) / xtiles;
-  int per = (chunks + target - 1) / target;
-  per = per < 1 ? 1 : (per > MAX_CHUNKS ? MAX_CHUNKS : per);
-  *ns_len = per * TN;
-  *nsplit = (chunks + per - 1) / per;
-}
+template <int TN, int DD, int WMAX>
+__device__ void stage1_tile(const bf16* __restrict__ GLb,
+                            const bf16* __restrict__ Xt,
+                            const float* __restrict__ sW,
+                            bf16* __restrict__ T2, int w, int Dp,
+                            uint32_t ring, int n0, int x0) {
+  using S = Stage1<TN, DD, WMAX>;
+  const uint32_t xring = ring + STAGES * TILE_BYTES;
+  const int tid = threadIdx.x;
+  const int ny = Dp / TILE, nk = w * ny;
 
-__global__ void __launch_bounds__(NT)
-ac_apply_bf16_partial(const float* __restrict__ GL, const float* __restrict__ W,
-                      const float* __restrict__ GR, const float* __restrict__ X,
-                      float* __restrict__ P, int w, int d, int D, int ns_len) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay(w, d, ns_len);
-  float* sW = reinterpret_cast<float*>(smem + lay.sW);
-  bf16* sT2 = reinterpret_cast<bf16*>(smem + lay.sT2);
-  float* sT1 = reinterpret_cast<float*>(smem + lay.sT1);  // [a][x][t*TN+nn]
-  bf16* sGL = reinterpret_cast<bf16*>(smem + lay.sGL);
-  bf16* sX = reinterpret_cast<bf16*>(smem + lay.sX);
-  bf16* sGR = reinterpret_cast<bf16*>(smem + lay.sGR);
-  float* sY = reinterpret_cast<float*>(smem + lay.sY);    // [x*d+s][r]
-
-  const int dTN = d * TN, ldx = lay.ldx, ldt2 = lay.ldt2, rows = TX * d;
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int nbase = blockIdx.x * ns_len;
-  const int x0 = blockIdx.y * TX;
-  const int nF1 = w * (dTN / 16);          // t1 tiles: (a, column block)
-  const int nF3 = (rows / 16) * (TR / 16); // y tiles: (row blk, col blk)
-  float* Ps = P + (size_t)blockIdx.x * D * d * D;
-
-  for (int i = tid; i < w * w * d * d; i += NT) sW[i] = W[i];
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fbc;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fc;
-
-  // ---- stages 1 and 2 over the split's n-range, chunk by chunk ----
-  for (int c0 = 0; c0 < ns_len; c0 += TN) {
-    const int n0 = nbase + c0;
-    for (int y0 = 0; y0 < D; y0 += TY) {
-      __syncthreads();  // the previous readers of sGL/sX/sT1 are done
-      for (int i = tid; i < w * TX * TY; i += NT) {
-        const int yy = i % TY, x = (i / TY) % TX, a = i / (TY * TX);
-        const int gx = x0 + x, gy = y0 + yy;
-        const float v = (gx < D && gy < D) ? GL[((size_t)a * D + gx) * D + gy]
-                                           : 0.f;
-        sGL[(a * TX + x) * LDGL + yy] = __float2bfloat16_rn(v);
-      }
-      for (int i = tid; i < TY * dTN; i += NT) {
-        const int nn = i % TN, t = (i / TN) % d, yy = i / dTN;
-        const int gy = y0 + yy, gn = n0 + nn;
-        const float v = (gy < D && gn < D) ? X[((size_t)gy * d + t) * D + gn]
-                                           : 0.f;
-        sX[yy * ldx + t * TN + nn] = __float2bfloat16_rn(v);
-      }
-      __syncthreads();
-      for (int f = warp; f < nF1; f += NWARP) {
-        const int a = f / (dTN / 16), cb = f % (dTN / 16);
-        float* acc = sT1 + (size_t)a * TX * dTN + cb * 16;
-        if (y0 == 0) wmma::fill_fragment(fc, 0.f);
-        else wmma::load_matrix_sync(fc, acc, dTN, wmma::mem_row_major);
-        for (int k = 0; k < TY; k += 16) {
-          wmma::load_matrix_sync(fa, sGL + a * TX * LDGL + k, LDGL);
-          wmma::load_matrix_sync(fb, sX + k * ldx + cb * 16, ldx);
-          wmma::mma_sync(fc, fa, fb, fc);
-        }
-        wmma::store_matrix_sync(acc, fc, dTN, wmma::mem_row_major);
+  // The Xt stage of yc is refilled by chunk (yc + STAGES, 0), loaded at
+  // iteration (yc + STAGES)*w - AHEAD; by then the groups of every chunk
+  // before (yc + STAGES)*w - AHEAD - 1 are complete, and the last chunk of
+  // yc, (yc + 1)*w - 1, is among them for any w >= 1 (AHEAD + 1 <=
+  // (STAGES - 1)*w).
+  auto load = [&](int c) {
+    const int yc = c / w, a = c - yc * w, y0 = yc * TILE;
+    const uint32_t sa = ring + (c % STAGES) * TILE_BYTES;
+    const bf16* gA = GLb + ((size_t)a * Dp + x0) * Dp + y0;
+    for (int i = tid; i < TILE * 8; i += NT) {
+      const int row = i >> 3, ch = i & 7;
+      cp_async16(sa + swz(row, ch), gA + (size_t)row * Dp + ch * 8);
+    }
+    if (a == 0) {
+      const uint32_t sb = xring + (yc % STAGES) * S::XT_BYTES;
+      for (int i = tid; i < DD * TN * 8; i += NT) {
+        const int row = i >> 3, ch = i & 7;  // row = t*TN + j
+        const int t = row / TN, j = row % TN;
+        cp_async16(sb + swz(row, ch),
+                   Xt + ((size_t)t * Dp + n0 + j) * Dp + y0 + ch * 8);
       }
     }
-    __syncthreads();  // sT1 complete
-    // t2[b][x*d+s][c0+nn] = bf16(sum_{a,t} W[a,b,s,t] t1[a][x][t*TN+nn])
-    for (int i = tid; i < w * rows * TN; i += NT) {
-      const int nn = i % TN, s = (i / TN) % d, x = (i / dTN) % TX,
-                b = i / (dTN * TX);
-      float acc = 0.f;
-      for (int a = 0; a < w; ++a) {
-        const float* t1 = sT1 + (a * TX + x) * dTN + nn;
-        const float* wab = sW + ((a * w + b) * d + s) * d;
-        for (int t = 0; t < d; ++t) acc = fmaf(wab[t], t1[t * TN], acc);
+  };
+
+  float acc[WMAX][DD][TN / 2];  // set by the first wgmma into each
+
+#pragma unroll
+  for (int c = 0; c < AHEAD; ++c) {
+    if (c < nk) load(c);
+    cp_async_commit();
+  }
+  int c = 0;
+  for (int yc = 0; yc < ny; ++yc) {
+    const uint32_t sb = xring + (yc % STAGES) * S::XT_BYTES;
+#pragma unroll
+    for (int a = 0; a < WMAX; ++a) {
+      if (a < w) {
+        cp_async_wait<AHEAD - 1>();  // this thread's copies of chunk c
+        fence_proxy_async();
+        // everyone's copies of c have landed, and everyone has seen the
+        // wgmma group of c-2 complete: its GL stage takes chunk c + AHEAD
+        __syncthreads();
+        if (c + AHEAD < nk) load(c + AHEAD);
+        cp_async_commit();
+        const uint32_t sa = ring + (c % STAGES) * TILE_BYTES;
+#pragma unroll
+        for (int t = 0; t < DD; ++t) fence_regs(acc[a][t]);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < TILE / 16; ++kk) {
+          const uint64_t da = desc(sa + kk * 32);
+#pragma unroll
+          for (int t = 0; t < DD; ++t)
+            wgmma<TN>(acc[a][t], da, desc(sb + t * S::B_BYTES + kk * 32),
+                      yc > 0 || kk > 0);
+        }
+        wg_commit();
+        wg_wait<1>();  // leaves this chunk's group in flight
+#pragma unroll
+        for (int t = 0; t < DD; ++t) fence_regs(acc[a][t]);
+        ++c;
       }
-      sT2[(b * rows + x * d + s) * ldt2 + c0 + nn] = __float2bfloat16_rn(acc);
     }
   }
+  wg_wait<0>();
+#pragma unroll
+  for (int a = 0; a < WMAX; ++a)
+#pragma unroll
+    for (int t = 0; t < DD; ++t) fence_regs(acc[a][t]);
 
-  // ---- stage 3: partial y[x*d+s][r] = sum_{b,n in range} t2 GR ----
-  for (int r0 = 0; r0 < D; r0 += TR) {
-    for (int c0 = 0; c0 < ns_len; c0 += TN) {
-      __syncthreads();  // sT2 complete / sGR and sY free for reuse
-      for (int i = tid; i < w * TR * TN; i += NT) {
-        const int nn = i % TN, r = (i / TN) % TR, b = i / (TN * TR);
-        const int gr = r0 + r, gn = nbase + c0 + nn;
-        const float v = (gr < D && gn < D) ? GR[((size_t)b * D + gr) * D + gn]
-                                           : 0.f;
-        sGR[(b * TR + r) * LDGR + nn] = __float2bfloat16_rn(v);
-      }
-      __syncthreads();
-      for (int f = warp; f < nF3; f += NWARP) {
-        const int rb = f / (TR / 16), cb = f % (TR / 16);
-        float* acc = sY + (size_t)rb * 16 * TR + cb * 16;
-        if (c0 == 0) wmma::fill_fragment(fc, 0.f);
-        else wmma::load_matrix_sync(fc, acc, TR, wmma::mem_row_major);
-        for (int b = 0; b < w; ++b) {
-          for (int k = 0; k < TN; k += 16) {
-            wmma::load_matrix_sync(
-                fa, sT2 + (b * rows + rb * 16) * ldt2 + c0 + k, ldt2);
-            wmma::load_matrix_sync(fbc, sGR + (b * TR + cb * 16) * LDGR + k,
-                                   LDGR);
-            wmma::mma_sync(fc, fa, fbc, fc);
+  // the middle, in each thread's own (x, n) entries
+  const int warp = tid >> 5, lane = tid & 31;
+  const int xr = x0 + warp * 16 + (lane >> 2);
+  const size_t ld = (size_t)w * Dp;
+  for (int b = 0; b < w; ++b) {
+    bf16* out = T2 + (size_t)b * Dp + n0 + 2 * (lane & 3);
+#pragma unroll
+    for (int s = 0; s < DD; ++s) {
+      float v[TN / 2];
+#pragma unroll
+      for (int r = 0; r < TN / 2; ++r) v[r] = 0.f;
+#pragma unroll
+      for (int a = 0; a < WMAX; ++a) {
+        if (a < w) {
+#pragma unroll
+          for (int t = 0; t < DD; ++t) {
+            const float cf = sW[((a * w + b) * DD + s) * DD + t];
+#pragma unroll
+            for (int r = 0; r < TN / 2; ++r)
+              v[r] = fmaf(cf, acc[a][t][r], v[r]);
           }
         }
-        wmma::store_matrix_sync(acc, fc, TR, wmma::mem_row_major);
+      }
+#pragma unroll
+      for (int r = 0; r < TN / 2; r += 2) {
+        const int x = xr + 8 * ((r >> 1) & 1);
+        *reinterpret_cast<__nv_bfloat162*>(
+            out + (size_t)(x * DD + s) * ld + 8 * (r >> 2)) =
+            __floats2bfloat162_rn(v[r], v[r + 1]);
       }
     }
-    __syncthreads();  // sY complete
-    for (int i = tid; i < rows * TR; i += NT) {
-      const int r = i % TR, row = i / TR;
-      const int gx = x0 + row / d, gr = r0 + r;
-      if (gx < D && gr < D) Ps[((size_t)x0 * d + row) * D + gr] = sY[i];
+  }
+}
+
+// ---- a 64 x 64 tile of a bf16 GEMM with f32 output -------------------------
+// out[m0 + i][r0 + j] = sum_k A[i][k] B[j][k] for i, j < 64. A and B are
+// K-major and already moved to the tile's first row: row i of A at A +
+// i*lda, row j of B at B + j*ldb. K runs in nk chunks of 64: chunk c of A
+// starts at column 64c, chunk c of B at column 64*(c % cpp) of panel c /
+// cpp, the panels `panel` elements apart (stage 3's K = (b, n) crosses the
+// slabs of GRb). Entries in a row >= rows or a column >= cols are padding
+// and are not stored.
+constexpr int GEMM_BYTES = STAGES * 2 * TILE_BYTES;
+
+__device__ void gemm_tile(const bf16* __restrict__ A, size_t lda,
+                          const bf16* __restrict__ B, size_t ldb, int cpp,
+                          size_t panel, int nk, float* __restrict__ out,
+                          size_t ldo, int rows, int cols, uint32_t ring,
+                          int m0, int r0) {
+  constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+  const int tid = threadIdx.x;
+
+  auto load = [&](int c) {
+    const uint32_t st = ring + (c % STAGES) * STAGE_BYTES;
+    const int p = c / cpp;
+    const bf16* gA = A + (size_t)c * TILE;
+    const bf16* gB = B + p * panel + (size_t)(c - p * cpp) * TILE;
+    for (int i = tid; i < TILE * 8; i += NT) {
+      const int row = i >> 3, ch = i & 7;
+      cp_async16(st + swz(row, ch), gA + row * lda + ch * 8);
+      cp_async16(st + TILE_BYTES + swz(row, ch), gB + row * ldb + ch * 8);
+    }
+  };
+
+  float acc[TILE / 2];  // set by the first wgmma
+
+#pragma unroll
+  for (int c = 0; c < AHEAD; ++c) {
+    if (c < nk) load(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<AHEAD - 1>();
+    fence_proxy_async();
+    __syncthreads();
+    if (c + AHEAD < nk) load(c + AHEAD);
+    cp_async_commit();
+    const uint32_t st = ring + (c % STAGES) * STAGE_BYTES;
+    fence_regs(acc);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma<TILE>(acc, desc(st + kk * 32), desc(st + TILE_BYTES + kk * 32),
+                  c > 0 || kk > 0);
+    wg_commit();
+    wg_wait<1>();
+    fence_regs(acc);
+  }
+  wg_wait<0>();
+  fence_regs(acc);
+
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int r = 0; r < TILE / 2; ++r) {
+    const int m = m0 + warp * 16 + (lane >> 2) + 8 * ((r >> 1) & 1);
+    const int col = r0 + 8 * (r >> 2) + 2 * (lane & 3) + (r & 1);
+    if (m < rows && col < cols) out[(size_t)m * ldo + col] = acc[r];
+  }
+}
+
+// ---- pass 3: y = T2 GRb^T ---------------------------------------------------
+// y viewed as (d*Dp) x Dp, row m = x*d + s; K = (b, n) runs over w*Dp in
+// chunks of 64, each inside one b. Rows with x >= D and columns r >= D are
+// padding.
+__device__ void stage3(const bf16* __restrict__ T2,
+                       const bf16* __restrict__ GRb, float* __restrict__ Y,
+                       int w, int d, int D, int Dp, uint32_t ring) {
+  const int n3 = Dp / TILE;
+  const size_t ld = (size_t)w * Dp;
+  for (int item = blockIdx.x; item < n3 * (d * Dp / TILE);
+       item += gridDim.x) {
+    const int r0 = item % n3 * TILE, m0 = item / n3 * TILE;
+    __syncthreads();  // the previous item is done with the ring
+    gemm_tile(T2 + m0 * ld, ld, GRb + (size_t)r0 * Dp, Dp, Dp / TILE,
+              (size_t)Dp * Dp, w * Dp / TILE, Y, D, D * d, D, ring, m0, r0);
+  }
+}
+
+// ---- the fused kernel: the three passes, a grid-wide barrier between them --
+// Launched cooperatively with no more blocks than fit on the card at once;
+// each pass deals its work items out over the blocks.
+template <int TN, int DD, int WMAX>
+__global__ void __launch_bounds__(NT, 1)
+k1_kernel(const float* __restrict__ GL, const float* __restrict__ W,
+          const float* __restrict__ GR, const float* __restrict__ X,
+          float* __restrict__ Y, bf16* __restrict__ GLb,
+          bf16* __restrict__ GRb, bf16* __restrict__ Xt,
+          bf16* __restrict__ T2, int w, int D, int Dp) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_u32(smem);
+  float* sW = reinterpret_cast<float*>(smem + Stage1<TN, DD, WMAX>::RING_BYTES);
+  cg::grid_group grid = cg::this_grid();
+
+  convert(GL, GR, X, GLb, GRb, Xt, w, DD, D, Dp,
+          reinterpret_cast<float(*)[33]>(smem));
+  for (int i = threadIdx.x; i < w * w * DD * DD; i += NT) sW[i] = W[i];
+  grid.sync();
+
+  const int n1 = Dp / TN;
+  for (int item = blockIdx.x; item < n1 * (Dp / TILE); item += gridDim.x) {
+    __syncthreads();  // the previous item is done with the rings
+    stage1_tile<TN, DD, WMAX>(GLb, Xt, sW, T2, w, Dp, ring, item % n1 * TN,
+                              item / n1 * TILE);
+  }
+  grid.sync();
+
+  stage3(T2, GRb, Y, w, DD, D, Dp, ring);
+}
+
+// ---- the general path, for any (w, d) -------------------------------------
+// Stage 1: T1[a] (Dp x d*Dp, f32; row x, column t*Dp + n) = GLb[a] Xt^T, Xt
+// seen as the (d*Dp) x Dp matrix of rows (t, n).
+__device__ void stage1_general(const bf16* __restrict__ GLb,
+                               const bf16* __restrict__ Xt,
+                               float* __restrict__ T1, int w, int d, int Dp,
+                               uint32_t ring) {
+  const int mt = Dp / TILE, jt = d * Dp / TILE;
+  const size_t ldo = (size_t)d * Dp;
+  for (int item = blockIdx.x; item < w * mt * jt; item += gridDim.x) {
+    const int a = item / (mt * jt), x0 = item / jt % mt * TILE,
+              j0 = item % jt * TILE;
+    __syncthreads();
+    gemm_tile(GLb + ((size_t)a * Dp + x0) * Dp, Dp, Xt + (size_t)j0 * Dp, Dp,
+              mt, 0, mt, T1 + a * Dp * ldo, ldo, Dp, d * Dp, ring, x0, j0);
+  }
+}
+
+// The middle: T2[x*d + s][b*Dp + n] = bf16(sum_{a,t} W[a,b,s,t]
+// T1[a][x][t*Dp + n]) for every (x, n) of Dp x Dp, padding included (stage 3
+// reads it against the zero padding of GRb, so it has to be finite). One
+// thread per (x, n), n fastest; the outputs g = b*d + s in groups of 8 held
+// in registers, each summed over (a, t) in the fused path's order.
+__device__ void middle_general(const float* __restrict__ T1,
+                               const float* __restrict__ W,
+                               bf16* __restrict__ T2, int w, int d, int Dp) {
+  constexpr int G = 8;
+  const int wd = w * d;
+  const size_t plane = (size_t)Dp * d * Dp, ld = (size_t)w * Dp;
+  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < (size_t)Dp * Dp;
+       e += (size_t)gridDim.x * NT) {
+    const int x = (int)(e / Dp), n = (int)(e % Dp);
+    const float* t1 = T1 + (size_t)x * d * Dp + n;
+    for (int g0 = 0; g0 < wd; g0 += G) {
+      float v[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) v[j] = 0.f;
+      for (int a = 0; a < w; ++a) {
+        for (int t = 0; t < d; ++t) {
+          const float u = t1[a * plane + (size_t)t * Dp];
+#pragma unroll
+          for (int j = 0; j < G; ++j) {
+            const int g = g0 + j, b = g / d, s = g - b * d;
+            if (g < wd) v[j] = fmaf(__ldg(W + ((a * w + b) * d + s) * d + t),
+                                    u, v[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int g = g0 + j, b = g / d, s = g - b * d;
+        if (g < wd)
+          T2[(size_t)(x * d + s) * ld + (size_t)b * Dp + n] =
+              __float2bfloat16_rn(v[j]);
+      }
     }
   }
 }
 
-// y[i] = sum over the splits of P[s][i], in split order.
-__global__ void sum_splits(const float* __restrict__ P, float* __restrict__ Y,
-                           size_t n, int nsplit) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < nsplit; ++s) acc += P[s * n + i];
-    Y[i] = acc;
-  }
+__global__ void __launch_bounds__(NT, 1)
+k1_general(const float* __restrict__ GL, const float* __restrict__ W,
+           const float* __restrict__ GR, const float* __restrict__ X,
+           float* __restrict__ Y, bf16* __restrict__ GLb,
+           bf16* __restrict__ GRb, bf16* __restrict__ Xt,
+           bf16* __restrict__ T2, float* __restrict__ T1, int w, int d,
+           int D, int Dp) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_u32(smem);
+  cg::grid_group grid = cg::this_grid();
+
+  convert(GL, GR, X, GLb, GRb, Xt, w, d, D, Dp,
+          reinterpret_cast<float(*)[33]>(smem));
+  grid.sync();
+  stage1_general(GLb, Xt, T1, w, d, Dp, ring);
+  grid.sync();
+  middle_general(T1, W, T2, w, d, Dp);
+  grid.sync();
+  stage3(T2, GRb, Y, w, d, D, Dp, ring);
 }
 
-cudaError_t sm_count(int* sms) {
+// ---- host side --------------------------------------------------------------
+// The fused tiers, (d, TN, largest w), the widest n-tile first for each d:
+// each keeps the w*d accumulators of 64 x TN at 96 f32 registers a thread.
+// Every other (w, d) takes k1_general.
+#define K1_TIERS(X) \
+  X(2, 32, 3) X(2, 16, 6) X(2, 8, 12) X(3, 32, 2) X(3, 16, 4) X(3, 8, 8)
+
+bool fused(int w, int d) {
+#define K1_HAS(DD_, TN_, WMAX_) \
+  if (d == DD_ && w <= WMAX_) return true;
+  K1_TIERS(K1_HAS)
+#undef K1_HAS
+  return false;
+}
+
+// The scratch of one launch, carved from one allocation at `base`: bf16
+// GLb and GRb (w, Dp, Dp), Xt (d, Dp, Dp), T2 (d*Dp, w*Dp), and for the
+// general path f32 T1 (w, Dp, d*Dp); each starts on a 256-byte boundary.
+struct Scratch {
+  bf16 *GLb, *GRb, *Xt, *T2;
+  float* T1;
+  size_t bytes;
+};
+
+Scratch carve(uintptr_t base, int w, int d, int Dp) {
+  const size_t slab = (size_t)Dp * Dp;
+  size_t off = 0;
+  auto take = [&](size_t nbytes) {
+    const uintptr_t p = base + off;
+    off += (nbytes + 255) / 256 * 256;
+    return p;
+  };
+  Scratch s;
+  s.GLb = (bf16*)take(2 * w * slab);
+  s.GRb = (bf16*)take(2 * w * slab);
+  s.Xt = (bf16*)take(2 * d * slab);
+  s.T2 = (bf16*)take(2 * (size_t)w * d * slab);
+  s.T1 = fused(w, d) ? nullptr : (float*)take(4 * (size_t)w * d * slab);
+  s.bytes = off;
+  return s;
+}
+
+int padded(int D) { return (D + TILE - 1) / TILE * TILE; }
+
+constexpr int MAX_DEVICES = 64;
+
+// Launches `kernel` cooperatively on stream `st` with `bytes` of dynamic
+// shared memory, one block per work item up to as many as fit on the card
+// at once. `resident` is the kernel's own record of that number per device
+// (0: not known yet); finding it sets the kernel's shared-memory size.
+cudaError_t cooperative(const void* kernel, size_t bytes, int items,
+                        void** args, cudaStream_t st,
+                        int (&resident)[MAX_DEVICES]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                          bytes);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm * sms <= 0) return cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
+  }
+  const int blocks = items < resident[dev] ? items : resident[dev];
+  return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NT), args,
+                                     bytes, st);
+}
+
+template <int TN, int DD, int WMAX>
+cudaError_t launch_fused(const float* GL, const float* W, const float* GR,
+                         const float* X, float* Y, const Scratch& s, int w,
+                         int D, int Dp, cudaStream_t st) {
+  static int resident[MAX_DEVICES];
+  const size_t most1 = Stage1<TN, DD, WMAX>::RING_BYTES +
+                       sizeof(float) * WMAX * WMAX * DD * DD;
+  const size_t bytes = 1024 + (most1 > GEMM_BYTES ? most1 : GEMM_BYTES);
+  const int items1 = (Dp / TN) * (Dp / TILE);
+  const int items3 = (Dp / TILE) * (DD * Dp / TILE);
+  bf16 *GLb = s.GLb, *GRb = s.GRb, *Xt = s.Xt, *T2 = s.T2;
+  void* args[] = {&GL, &W, &GR, &X, &Y, &GLb, &GRb, &Xt, &T2, &w, &D, &Dp};
+  return cooperative((const void*)k1_kernel<TN, DD, WMAX>, bytes,
+                     items1 > items3 ? items1 : items3, args, st, resident);
+}
+
+cudaError_t launch_general(const float* GL, const float* W, const float* GR,
+                           const float* X, float* Y, const Scratch& s, int w,
+                           int d, int D, int Dp, cudaStream_t st) {
+  static int resident[MAX_DEVICES];
+  // stage 1's items outnumber stage 3's by w
+  const int items = w * (Dp / TILE) * (d * Dp / TILE);
+  bf16 *GLb = s.GLb, *GRb = s.GRb, *Xt = s.Xt, *T2 = s.T2;
+  float* T1 = s.T1;
+  void* args[] = {&GL,  &W,  &GR, &X, &Y, &GLb, &GRb,
+                  &Xt, &T2, &T1, &w, &d, &D,   &Dp};
+  return cooperative((const void*)k1_general, 1024 + GEMM_BYTES, items, args,
+                     st, resident);
 }
 
 }  // namespace
 
-// Number of n-splits the launch below uses at width D on the current
-// device, or a negative cudaError_t. The caller sizes the partials buffer
-// from it: nsplit * D * d * D floats.
-extern "C" int ac_apply_bf16_nsplit(int D) {
-  int sms = 0, nsplit = 0, ns_len = 0;
-  const cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return -(int)err;
-  split_plan(D, sms, &nsplit, &ns_len);
-  return nsplit;
+// Plain C entry points (loaded with ctypes). GL, GR: (w, D, D); W: (w, w,
+// d, d); X, Y: (D, d, D); all float32, contiguous, on the current device.
+
+// Bytes of device scratch that ac_apply_bf16 needs at (w, d, D); 0 if
+// these are not all positive.
+extern "C" size_t ac_apply_bf16_scratch_bytes(int w, int d, int D) {
+  if (w <= 0 || d <= 0 || D <= 0) return 0;
+  return carve(0, w, d, padded(D)).bytes;
 }
 
-// Plain C entry point (loaded with ctypes). GL, GR: (w, D, D); W: (w, w, d,
-// d); X, Y: (D, d, D); P: nsplit * D * d * D floats of scratch; all float32,
-// contiguous, on the current device. Launches both passes on `stream`
-// without synchronizing and returns the first launch's cudaError_t (0 on
-// success).
+// Launches K1 on `stream` without synchronizing, with `scratch` (256-byte
+// aligned, `scratch_bytes` long, at least ac_apply_bf16_scratch_bytes) as
+// its work space, and returns the launch's cudaError_t (0 on success).
 extern "C" int ac_apply_bf16(const float* GL, const float* W, const float* GR,
-                             const float* X, float* Y, float* P, int w, int d,
-                             int D, void* stream) {
-  if (w <= 0 || d <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
-  int sms = 0, nsplit = 0, ns_len = 0, dev = 0, max_optin = 0;
-  cudaError_t err = sm_count(&sms);
-  if (err != cudaSuccess) return (int)err;
-  split_plan(D, sms, &nsplit, &ns_len);
-  const size_t bytes = Layout(w, d, ns_len).total;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (bytes > (size_t)max_optin) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    err = cudaFuncSetAttribute(ac_apply_bf16_partial,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+                             const float* X, float* Y, void* scratch,
+                             size_t scratch_bytes, int w, int d, int D,
+                             void* stream) {
+  if (w <= 0 || d <= 0 || D <= 0 || scratch == nullptr ||
+      (uintptr_t)scratch % 256 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int Dp = padded(D);
+  const Scratch s = carve((uintptr_t)scratch, w, d, Dp);
+  if (s.bytes > scratch_bytes) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid(nsplit, (D + TX - 1) / TX);
-  ac_apply_bf16_partial<<<grid, NT, bytes, st>>>(GL, W, GR, X, P, w, d, D,
-                                                 ns_len);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)D * d * D;
-  sum_splits<<<(unsigned)((n + 1023) / 1024), 256, 0, st>>>(P, Y, n, nsplit);
-  return (int)cudaGetLastError();
+#define K1_LAUNCH(DD_, TN_, WMAX_)                                      \
+  if (d == DD_ && w <= WMAX_)                                           \
+    return (int)launch_fused<TN_, DD_, WMAX_>(GL, W, GR, X, Y, s, w, D, \
+                                              Dp, st);
+  K1_TIERS(K1_LAUNCH)
+#undef K1_LAUNCH
+  return (int)launch_general(GL, W, GR, X, Y, s, w, d, D, Dp, st);
 }

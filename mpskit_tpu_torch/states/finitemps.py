@@ -92,10 +92,10 @@ class FiniteMPS:
 
     @staticmethod
     def random(L: int, d: int, D: int, dtype=torch.complex128,
-               device="cpu", generator: torch.Generator = None) -> "FiniteMPS":
+               device="cuda", generator: torch.Generator = None) -> "FiniteMPS":
         """Random finite MPS with exactly-zero padding outside the physical
-        bond ranks. `generator` must live on `device` (None: the global
-        generator)."""
+        bond ranks, on the card unless `device` says otherwise. `generator`
+        must live on `device` (None: the global generator)."""
         shape = (L, D, d, D)
         if dtype.is_complex:
             rdt = torch.empty((), dtype=dtype).real.dtype

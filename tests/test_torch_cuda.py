@@ -15,6 +15,7 @@ from mpskit_tpu_torch import (
 )
 from mpskit_tpu_torch.algorithms import derivatives
 from mpskit_tpu_torch.config import matmul_precision
+from mpskit_tpu_torch.interop import finite_mps_from_numpy
 from mpskit_tpu_torch.kernels import ac_apply as k1
 
 
@@ -33,11 +34,19 @@ def _k1_inputs(D, d, w, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D,d,w", [(512, 2, 3), (200, 2, 3), (96, 3, 5)])
+@pytest.mark.parametrize("D,d,w", [(512, 2, 3), (200, 2, 3), (96, 3, 5),
+                                   (64, 2, 3), (520, 2, 3), (256, 3, 5),
+                                   (130, 2, 5), (128, 2, 9), (128, 3, 2),
+                                   (100, 3, 4), (64, 2, 13), (70, 3, 9),
+                                   (130, 4, 3)])
 def test_k1_matches_plain_on_card(D, d, w):
     """K1 against its plain version (same rounding points: 1e-3 bounds the
-    f32 summation-order differences) at the main path's width, at a D that
-    is not a multiple of the kernel's tiles, and at another (w, d)."""
+    f32 summation-order differences) at the main path's width, at D that
+    are not multiples of the kernel's 64-wide tiles (200, and 520, one past
+    a tile edge), at a single tile (64), at the spin-1 Heisenberg shape
+    (w=5, d=3), once in each other fused tier of the CUDA source's
+    K1_TIERS, and on the general path that every other (w, d) takes (past
+    the widest tier at d = 2 and 3, and at d = 4)."""
     _need_card()
     GL, W, GR, x = _k1_inputs(D, d, w, seed=D)
     before = k1.launches
@@ -47,6 +56,28 @@ def test_k1_matches_plain_on_card(D, d, w):
     torch.cuda.synchronize()
     assert k1.launches == before + 1
     assert float((y - y_plain).norm() / y_plain.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_k1_is_deterministic():
+    """No atomics and no split of a contracted index: two launches on the
+    same inputs give bit-identical results."""
+    _need_card()
+    GL, W, GR, x = _k1_inputs(512, 2, 3, seed=1)
+    y1 = k1.ac_apply_bf16(GL, W, GR, x)
+    y2 = k1.ac_apply_bf16(GL, W, GR, x)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.cuda
+def test_k1_counts_one_launch_per_call():
+    """One wrapper call runs three passes on the card and counts one."""
+    _need_card()
+    GL, W, GR, x = _k1_inputs(200, 2, 3, seed=2)
+    before = k1.launches
+    k1.ac_apply_bf16(GL, W, GR, x)
+    assert k1.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -79,3 +110,14 @@ def test_float32_dmrg_on_card_goes_through_k1():
     assert k1.launches > before
     E = float(expectation_value(psi, H, envs))
     assert abs(E - e0) <= 1e-5 * abs(e0)
+
+
+@pytest.mark.cuda
+def test_entry_points_build_on_the_card_by_default():
+    _need_card()
+    psi = FiniteMPS.random(4, 2, 4, torch.float64)
+    assert psi.device.type == "cuda" and psi.ALs.device.type == "cuda"
+    rng = np.random.default_rng(4)
+    ALs, AC = rng.standard_normal((4, 4, 2, 4)), rng.standard_normal((4, 2, 4))
+    carried = finite_mps_from_numpy(ALs, ALs, AC, 0)
+    assert carried.device.type == "cuda"

@@ -1,0 +1,62 @@
+"""The port's entry points build their tensors on the card unless the
+caller asks for the CPU, and the environment helpers take the device from
+their caller. Without a card the default raises torch's own CUDA error;
+nothing falls back to the CPU. This file imports no jax."""
+
+import numpy as np
+import pytest
+import torch
+
+from mpskit_tpu_torch import FiniteMPS, transverse_field_ising_lattice
+from mpskit_tpu_torch.environments import finite as tenv
+from mpskit_tpu_torch.interop import finite_mps_from_numpy
+
+L, d, D = 4, 2, 4
+
+
+def _arrays():
+    rng = np.random.default_rng(0)
+    As = rng.standard_normal((L, D, d, D))
+    return As, As.copy(), rng.standard_normal((D, d, D))
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device would work")
+
+
+@pytest.mark.parametrize("entry", ["random", "from_numpy"])
+def test_entry_points_default_to_the_card(entry):
+    _no_card()
+    # CPU-only torch raises AssertionError ("not compiled with CUDA"), a
+    # CUDA build without a device RuntimeError
+    with pytest.raises((AssertionError, RuntimeError)):
+        if entry == "random":
+            FiniteMPS.random(L, d, D, torch.float64)
+        else:
+            finite_mps_from_numpy(*_arrays(), 0)
+
+
+def test_entry_points_on_the_cpu_when_asked():
+    gen = torch.Generator().manual_seed(0)
+    psi = FiniteMPS.random(L, d, D, torch.float64, "cpu", gen)
+    assert psi.device.type == "cpu" and psi.AC.shape == (D, d, D)
+    assert psi.ALs.device.type == psi.ARs.device.type == "cpu"
+    ALs, ARs, AC = _arrays()
+    carried = finite_mps_from_numpy(ALs, ARs, AC, 2, device="cpu")
+    assert carried.device.type == "cpu" and carried.center == 2
+    assert torch.equal(carried.AC, torch.from_numpy(AC))
+
+
+@pytest.mark.parametrize("helper", ["left_boundary", "right_boundary",
+                                    "stack_W"])
+def test_environment_helpers_need_a_device(helper):
+    H = transverse_field_ising_lattice(g=1.5)
+    w = H.W.shape[1]
+    args = ((H, L, torch.float64) if helper == "stack_W"
+            else (w, D, torch.float64))
+    fn = getattr(tenv, helper)
+    with pytest.raises(TypeError):
+        fn(*args)
+    out = fn(*args, "cpu")
+    assert out.device.type == "cpu" and out.dtype == torch.float64

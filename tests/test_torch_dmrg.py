@@ -40,7 +40,7 @@ _jax_sweep = partial(jax.jit, static_argnums=(6, 7),
 def _center_schmidt(ALs, ARs, AC, L):
     """Schmidt values on the bond right of site L//2 - 1 of a state with
     center 0 (numpy, host)."""
-    psi = finite_mps_from_numpy(ALs, ARs, AC, 0).move_center(L // 2 - 1)
+    psi = finite_mps_from_numpy(ALs, ARs, AC, 0, "cpu").move_center(L // 2 - 1)
     D = AC.shape[0]
     return np.linalg.svd(psi.AC.reshape(-1, D).numpy(), compute_uv=False)
 
@@ -71,9 +71,10 @@ def test_one_sweep_matches_jax(cheap_galerkin):
         masks=jnp.asarray(masks), cheap_galerkin=cheap_galerkin)
 
     pt = finite_mps_from_numpy(np.asarray(pj.ALs), np.asarray(pj.ARs),
-                               np.asarray(pj.AC), 0)
-    Wst = stack_W(mpo_from_numpy(np.asarray(Hj.W)), L, torch.float64)
-    GRst = compute_right_envs(pt.ARs, Wst, right_boundary(w, D, torch.float64))
+                               np.asarray(pj.AC), 0, "cpu")
+    Wst = stack_W(mpo_from_numpy(np.asarray(Hj.W)), L, torch.float64, "cpu")
+    GRst = compute_right_envs(pt.ARs, Wst,
+                              right_boundary(w, D, torch.float64, "cpu"))
     np.testing.assert_allclose(GRst.numpy(), np.asarray(GRsj),
                                rtol=1e-12, atol=1e-12)
     ALt, ARt, ACt, _, lamt, _, _ = _dmrg_sweep_impl(

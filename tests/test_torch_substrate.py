@@ -136,7 +136,7 @@ def test_mpo_models_match_jax_bit_for_bit():
             assert H.diag_scalar == Hj.diag_scalar
         assert np.array_equal(Ht.to_matrix(4), Hj.to_matrix(4))
         for L in (5, 7):
-            Wt = tenv.stack_W(Ht, L)
+            Wt = tenv.stack_W(Ht, L, None, "cpu")
             assert np.array_equal(Wt.numpy(), np.asarray(jenv.stack_W(Hj, L)))
     # MPO algebra: sum, scalar product and energy shift
     a, b = _models(tham)[:2], _models(jham)[:2]
@@ -167,7 +167,7 @@ def test_finite_mps_layout_matches_jax():
                                _np(qj.move_center(1).AC), **TOL)
     assert abs(float(qt.norm()) - 1.0) <= 1e-12
     carried = finite_mps_from_numpy(np.asarray(qj.ALs), np.asarray(qj.ARs),
-                                    np.asarray(qj.AC), qj.center)
+                                    np.asarray(qj.AC), qj.center, "cpu")
     assert carried.center == 4 and torch.equal(carried.AC, _t(qj.AC))
 
 
@@ -177,7 +177,7 @@ def test_transfer_and_environments_match_jax():
     Hj = jham.transverse_field_ising_lattice(g=1.5)
     Ht = mpo_from_numpy(np.asarray(Hj.W))
     Wj = jenv.stack_W(Hj, L)
-    Wt = tenv.stack_W(Ht, L, torch.complex128)
+    Wt = tenv.stack_W(Ht, L, torch.complex128, "cpu")
     w = Wt.shape[1]
     As = _rand(rng, (L, D, d, D), np.complex128)
     Bs = _rand(rng, (L, D, d, D), np.complex128)
@@ -193,11 +193,11 @@ def test_transfer_and_environments_match_jax():
         np.testing.assert_allclose(_np(tf(_t(v), _t(As[1]), _t(Bs[1]))),
                                    _np(jf(v, As[1], Bs[1])), **TOL)
     GLs_t = tenv.compute_left_envs(
-        _t(As), Wt, tenv.left_boundary(w, D, torch.complex128))
+        _t(As), Wt, tenv.left_boundary(w, D, torch.complex128, "cpu"))
     GLs_j = jenv.compute_left_envs(
         As, Wj, jenv.left_boundary(w, D, jnp.complex128))
     GRs_t = tenv.compute_right_envs(
-        _t(As), Wt, tenv.right_boundary(w, D, torch.complex128))
+        _t(As), Wt, tenv.right_boundary(w, D, torch.complex128, "cpu"))
     GRs_j = jenv.compute_right_envs(
         As, Wj, jenv.right_boundary(w, D, jnp.complex128))
     np.testing.assert_allclose(_np(GLs_t), _np(GLs_j), **TOL)
