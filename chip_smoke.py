@@ -18,7 +18,20 @@ Phases, in order; any failure exits non-zero:
      ground energy (covers QR of the padded rank-deficient edge panels);
   5. the slice at full width: find_groundstate with DMRG(krylovdim=10,
      eig_maxrestarts=2, cheap_galerkin=True) on TFIM L=32 D=512 float32,
-     against the closed-form energy, with K1's launch count from this run.
+     against the closed-form energy, with K1's launch count from this run;
+  6. f64 VUMPS: find_groundstate with VUMPS(tol=1e-9, maxiter=150) on the
+     infinite TFIM (g=1.5) at D=12 in float64, against the exact energy
+     density (an integral over the free-fermion dispersion);
+  7. the infinite slice at full width, under bench.py's protocol for
+     vumps_iteration_time_tfim_D256_float32: TFIM g=1.5, one-site cell,
+     d=2, D=256, float32, krylovdim=10, eig_maxrestarts=2, gauge and
+     environment tolerance 1e-8, inner tolerance 1e-6; 8 warm iterations
+     with the environments carried, then 3 replays of the same 32
+     iterations timed (s/iter) with their host syncs, then one extra
+     iteration split by synchronizations into environments, AC solves,
+     C solves and regauge, and one under torch.profiler for the device's
+     busy time; gates on the energy density, finiteness, shapes and zero
+     K1 launches (the VUMPS site solves are exact).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
 """
@@ -45,6 +58,12 @@ K1_SHAPES = ((512, 2, 3), (200, 2, 3), (64, 2, 3), (520, 2, 3), (256, 3, 5),
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
 E_TOL_F64 = 1e-8      # absolute, float64
 E_TOL_F32 = 1e-5      # relative, float32 with a bf16 first restart
+E_TOL_VUMPS_F64 = 1e-7  # absolute, float64 energy density
+# bench.py's VUMPS workload and protocol (bench.py:40-46, :70-133)
+VUMPS_D, VUMPS_G = 256, 1.5
+VUMPS_ARGS = dict(m=10, restarts=2, gauge_tol=1e-8, env_tol_static=1e-8,
+                  inner_tol=1e-6)
+VUMPS_WARMUP, VUMPS_BATCH, VUMPS_REPS = 8, 32, 3
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -53,6 +72,15 @@ def tfim_open_chain_e0(L: int, g: float) -> float:
     fermions)."""
     A = g * np.eye(L) + np.diag(np.ones(L - 1), 1)
     return -float(np.linalg.svd(A, compute_uv=False).sum())
+
+
+def tfim_density(g: float) -> float:
+    """Exact ground energy per site of the infinite TFIM H = -sum Z Z - g
+    sum X: -(1/pi) int_0^pi sqrt(1 + g^2 - 2 g cos k) dk (200-point
+    Gauss-Legendre, exact to rounding for this smooth integrand)."""
+    k, wk = np.polynomial.legendre.leggauss(200)
+    return float(-np.sum(wk * np.sqrt(1 + g * g - 2 * g * np.cos(
+        np.pi * (k + 1) / 2))) / 2)
 
 
 def log(msg: str) -> None:
@@ -309,6 +337,185 @@ def phase_slice():
     return launches
 
 
+def phase_vumps_f64():
+    import torch
+    from mpskit_tpu_torch import (
+        VUMPS, InfiniteMPS, expectation_value, find_groundstate,
+        transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    g, D = 1.5, 12
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    psi = InfiniteMPS.random(1, 2, D, torch.float64, "cuda", gen)
+    H = transverse_field_ising_lattice(g=g)
+    launches = k1.launches
+    t0 = time.perf_counter()
+    psi, envs, eps = find_groundstate(psi, H, VUMPS(tol=1e-9, maxiter=150))
+    e = float(expectation_value(psi, H, envs)[0])
+    e_env = float(envs.e_density)
+    e0 = tfim_density(g)
+    log(f"[vumps-f64] TFIM g={g} D={D}: e={e:.15f} (envs {e_env:.15f}) "
+        f"e0={e0:.15f} |de|={abs(e - e0):.3e} (tol {E_TOL_VUMPS_F64}), "
+        f"eps={eps:.2e}, {time.perf_counter() - t0:.1f} s, K1 launches "
+        f"{k1.launches - launches}")
+    if not (abs(e - e0) <= E_TOL_VUMPS_F64
+            and abs(e_env - e0) <= E_TOL_VUMPS_F64):
+        raise RuntimeError("float64 VUMPS energy misses the exact density")
+    if k1.launches != launches:
+        raise RuntimeError("float64 VUMPS launched K1")
+
+
+def _vumps_split(psi, H, env, marks):
+    """One VUMPS iteration as `_vumps_iteration_impl` runs it, with a
+    synchronization and a mark (time, host syncs) after each part."""
+    import torch
+    from mpskit_tpu_torch.algorithms import vumps
+    from mpskit_tpu_torch.environments.finite import stack_W
+    from mpskit_tpu_torch.environments.infinite_ham import (
+        hamiltonian_environments,
+    )
+    from mpskit_tpu_torch.utils import sync
+
+    a = VUMPS_ARGS
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter(), sync.count))
+
+    mark("start")
+    envs = hamiltonian_environments(psi, H, tol=a["env_tol_static"],
+                                    env_init=env)
+    mark("environments")
+    Ws = stack_W(H, psi.period, psi.dtype, psi.device)
+    ACs, _ = vumps._solve_acs(envs, Ws, psi.AC, a["m"], a["restarts"],
+                              a["inner_tol"])
+    mark("AC solves")
+    Cs, _ = vumps._solve_cs(envs, psi.C, a["m"], a["restarts"],
+                            a["inner_tol"])
+    mark("C solves")
+    psi, eps = vumps._regauge(ACs, Cs)
+    mark("regauge")
+    return psi, eps, envs
+
+
+def _device_busy_ms(fn):
+    """Device time of the kernels and copies that `fn` launches, summed
+    from a torch.profiler trace, and their count (None, 0 if the trace
+    holds no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(spans) / 1e3 if sum(spans) > 0 else None), len(spans)
+
+
+def phase_vumps_slice():
+    import torch
+    from mpskit_tpu_torch import (
+        InfiniteMPS, expectation_value, transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.algorithms.vumps import _vumps_iteration_impl
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+
+    D, d, g, a = VUMPS_D, 2, VUMPS_G, VUMPS_ARGS
+    H = transverse_field_ising_lattice(g=g)
+    e0 = tfim_density(g)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def iterate(psi, env, n):
+        for _ in range(n):
+            psi, eps, env, diag = _vumps_iteration_impl(
+                psi, H, a["m"], a["restarts"], a["gauge_tol"],
+                a["env_tol_static"], a["inner_tol"], env_guess=env)
+        return psi, eps, env, diag
+
+    with matmul_precision():
+        k1.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        psi = InfiniteMPS.random(1, d, D, torch.float32, "cuda", gen)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sync.count = 0
+        psi, eps, env, _ = iterate(psi, None, VUMPS_WARMUP)
+        eps_warm = sync.to_host(eps)[0]
+        t2 = time.perf_counter()
+        log(f"[vumps] D={D} float32: random state gauge-fixed in "
+            f"{t1 - t0:.3f} s; {VUMPS_WARMUP} warm iterations "
+            f"{t2 - t1:.3f} s, {sync.count} host syncs, eps {eps_warm:.3e}")
+
+        # timed: 3 replays of the same 32 iterations from the warm state
+        torch.cuda.synchronize()
+        sync.count = 0
+        t0 = time.perf_counter()
+        for _ in range(VUMPS_REPS):
+            out = iterate(psi, env, VUMPS_BATCH)
+        torch.cuda.synchronize()
+        n_iter = VUMPS_REPS * VUMPS_BATCH
+        dt = (time.perf_counter() - t0) / n_iter
+        syncs = sync.count / n_iter
+        psi_end, eps_dev, env_end, diag = out
+        eps_end = sync.to_host(eps_dev)[0]
+        log(f"[vumps] {VUMPS_REPS} replays of iterations "
+            f"{VUMPS_WARMUP + 1}..{VUMPS_WARMUP + VUMPS_BATCH}: {dt:.6f} "
+            f"s/iter, {syncs:.2f} host syncs/iter; eps {eps_end:.3e}, "
+            f"unconverged site solves {diag[0]}, env GMRES residual "
+            f"{diag[1]:.3e}")
+        log(json.dumps({"metric": f"vumps_iteration_time_tfim_D{D}_float32",
+                        "value": dt, "unit": "s",
+                        "host_syncs_per_iter": syncs}))
+
+        # outside the timed window: one iteration split into its parts,
+        # and one under the profiler for the device's busy time
+        marks = []
+        psi_x, eps_x, envs_x = _vumps_split(psi_end, H, env_end, marks)
+        parts = [(marks[i][0], marks[i][1] - marks[i - 1][1],
+                  marks[i][2] - marks[i - 1][2])
+                 for i in range(1, len(marks))]
+        total = marks[-1][1] - marks[0][1]
+        log(f"[vumps] one iteration split ({total * 1e3:.3f} ms, "
+            f"{marks[-1][2] - marks[0][2]} host syncs): " + "; ".join(
+                f"{n} {t * 1e3:.3f} ms ({t / total:.1%}, {c} syncs)"
+                for n, t, c in parts))
+        # the profiled iteration repeats the split one (same state, same
+        # environments), so its device time is set against the split's
+        # wall time, which the profiler does not inflate
+        busy, n_dev = _device_busy_ms(lambda: iterate(psi_end, env_end, 1))
+        log("[vumps] the same iteration under torch.profiler: " + (
+            f"{n_dev} kernels and copies on the device, busy {busy:.3f} ms "
+            f"of the split's {total * 1e3:.3f} ms, idle share "
+            f"{1 - busy / (total * 1e3):.1%}" if busy else
+            "no device time in the trace: idle share not measured"))
+
+        launches = k1.launches
+        e_env = float(envs_x.e_density)
+        e = float(expectation_value(psi_x, H)[0])
+    rel = max(abs(e - e0), abs(e_env - e0)) / abs(e0)
+    log(f"[vumps] TFIM g={g} D={D} float32: e={e:.8f} (envs {e_env:.8f}) "
+        f"e0={e0:.8f} rel err {rel:.3e} (tol {E_TOL_F32}), eps "
+        f"{sync.to_host(eps_x)[0]:.3e}, K1 launches in this phase: "
+        f"{launches}")
+    shapes = {"AL": (1, D, d, D), "AR": (1, D, d, D), "AC": (1, D, d, D),
+              "C": (1, D, D)}
+    for name, shape in shapes.items():
+        t = getattr(psi_x, name)
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise RuntimeError(f"VUMPS {name} is not finite or has shape "
+                               f"{tuple(t.shape)}, expected {shape}")
+    if not (np.isfinite(eps_end) and rel <= E_TOL_F32):
+        raise RuntimeError("float32 VUMPS energy misses the exact density")
+    if launches != 0:
+        raise RuntimeError("VUMPS launched K1: its site solves must be exact")
+
+
 def main():
     sys.path.insert(0, str(REPO))
     phase_device()
@@ -318,6 +525,8 @@ def main():
     k1 = phase_k1()
     phase_f64()
     launches = phase_slice()
+    phase_vumps_f64()
+    phase_vumps_slice()
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,

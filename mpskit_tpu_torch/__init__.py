@@ -4,14 +4,20 @@ H100.
 Slice 0 covers finite one-site DMRG on MPO Hamiltonians: the substrate
 (config, tensor ops, Lanczos), MPOs and models, FiniteMPS, environments,
 the effective-Hamiltonian matvecs with the bf16 kernel K1, DMRG and the
-finite expectation value. The package imports torch and never jax; the
-JAX package stays the reference the tests hold it to."""
+finite expectation value. Slice 1 redesigned K1 for Hopper. Slice 4 adds
+the infinite ground states: GMRES and Arnoldi, uniform gauging and
+InfiniteMPS, the infinite environments, VUMPS, the infinite expectation
+values and the InfiniteMPS and chained branches of find_groundstate. The
+package imports torch and never jax; the JAX package stays the reference
+the tests hold it to."""
 
 from .algorithms import (
-    DMRG, expectation_value, find_groundstate, find_groundstate_dmrg,
+    DMRG, VUMPS, expectation_value, find_groundstate, find_groundstate_dmrg,
+    find_groundstate_vumps,
 )
 from .models.hamiltonians import (
     heisenberg_XXX, transverse_field_ising, transverse_field_ising_lattice,
 )
 from .operators.mpo import MPOHamiltonian
 from .states.finitemps import FiniteMPS
+from .states.infinitemps import InfiniteMPS

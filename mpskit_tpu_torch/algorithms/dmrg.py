@@ -27,10 +27,11 @@ from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog
 from ..utils.sync import to_host
 from .derivatives import ac_apply, ac_apply_fast
+from .unionalg import Chainable
 
 
 @dataclasses.dataclass(frozen=True)
-class DMRG:
+class DMRG(Chainable):
     """One-site DMRG parameters (same fields and defaults as
     mpskit_tpu.algorithms.dmrg.DMRG).
 

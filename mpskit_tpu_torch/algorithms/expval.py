@@ -1,14 +1,18 @@
-"""Expectation values (counterpart of mpskit_tpu/algorithms/expval.py,
-the finite MPOHamiltonian branch)."""
+"""Expectation values (counterpart of mpskit_tpu/algorithms/expval.py:
+the finite MPOHamiltonian branch and the infinite MPOHamiltonian and
+one-site-operator branches)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..environments.finite import finite_environments, stack_W
 from ..operators.mpo import MPOHamiltonian
 from ..states.finitemps import FiniteMPS
+from ..states.infinitemps import InfiniteMPS
 from .derivatives import ac_apply
+from .expval_infinite import expval_infinite_local, expval_infinite_mpoham
 
 
 def _expval_finite_mpoham(psi: FiniteMPS, H: MPOHamiltonian, envs=None):
@@ -22,11 +26,21 @@ def _expval_finite_mpoham(psi: FiniteMPS, H: MPOHamiltonian, envs=None):
 
 
 def expectation_value(psi, O, envs=None):
-    """<psi|H|psi> / <psi|psi> for a FiniteMPS and an MPOHamiltonian (a
-    0-dim tensor). Other states and operators come with later slices."""
+    """expectation_value(psi, H) for an MPOHamiltonian: <psi|H|psi> /
+    <psi|psi> of a FiniteMPS (0-dim tensor), the per-site energy density
+    of an InfiniteMPS ((L,) tensor); expectation_value(psi, (site, O)) for
+    a one-site operator on an InfiniteMPS. Other combinations come with
+    later slices."""
     if isinstance(psi, FiniteMPS) and isinstance(O, MPOHamiltonian):
         return _expval_finite_mpoham(psi, O, envs)
+    if isinstance(psi, InfiniteMPS):
+        if isinstance(O, MPOHamiltonian):
+            return expval_infinite_mpoham(psi, O, envs)
+        if isinstance(O, tuple) and len(O) == 2:
+            site, op = O
+            if np.ndim(op) == 2 and np.shape(op)[0] == psi.physicaldim:
+                return expval_infinite_local(psi, op, site)
     raise NotImplementedError(
         f"expectation_value({type(psi).__name__}, {type(O).__name__}) is not "
-        "ported yet: local operators and DenseMPO come with queue-1 slice 10, "
-        "infinite states with slice 4 (ROADMAP.md)")
+        "ported yet: finite local operators, operator strings, ranged "
+        "energies and DenseMPO come with queue-1 slice 10 (ROADMAP.md)")

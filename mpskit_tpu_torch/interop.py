@@ -9,6 +9,7 @@ import torch
 
 from .operators.mpo import MPOHamiltonian
 from .states.finitemps import FiniteMPS
+from .states.infinitemps import InfiniteMPS
 
 
 def finite_mps_from_numpy(ALs, ARs, AC, center: int,
@@ -19,6 +20,16 @@ def finite_mps_from_numpy(ALs, ARs, AC, center: int,
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     return FiniteMPS(t(ALs), t(ARs), t(AC), int(center))
+
+
+def infinite_mps_from_numpy(AL, AR, AC, C, device="cuda") -> InfiniteMPS:
+    """InfiniteMPS from stacked (L, D, d, D) AL/AR/AC and (L, D, D) C, on the
+    card unless `device` says otherwise. The arrays are taken as they are:
+    no gauge fix runs."""
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    return InfiniteMPS(t(AL), t(AR), t(AC), t(C))
 
 
 def mpo_from_numpy(W) -> MPOHamiltonian:

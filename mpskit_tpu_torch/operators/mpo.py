@@ -46,8 +46,8 @@ def decompose_localmpo(O: np.ndarray, tol: float = 1e-12) -> List[np.ndarray]:
     return tensors
 
 
-# classification of FSM diagonal blocks (used by the infinite environment
-# solves of a later slice; kept so the metadata matches the JAX package)
+# classification of FSM diagonal blocks (picks the solve of each FSM level
+# in environments/infinite_ham.py)
 DIAG_ZERO = 0
 DIAG_IDENTITY = 1
 DIAG_SCALAR = 2
@@ -81,6 +81,11 @@ class MPOHamiltonian:
     @property
     def dtype(self):
         return self.W.dtype
+
+    def site(self, i) -> np.ndarray:
+        """Host FSM tensor (w, w, d, d) of site i (periodic); a unit cell's
+        device stack is `environments.finite.stack_W`."""
+        return self.W[i % self.period]
 
     @staticmethod
     def _analyze(W: np.ndarray) -> "MPOHamiltonian":

@@ -1,5 +1,5 @@
 """Sign-fixed QR/LQ and the MPS gauge moves (counterpart of the parts of
-mpskit_tpu/tensors/ops.py on the DMRG path).
+mpskit_tpu/tensors/ops.py on the DMRG and VUMPS paths).
 
 Conventions: MPS site tensor ``A[l, p, r]``, bond matrix ``C[l, r]``. All
 decompositions keep static shapes: a rank-deficient panel keeps its full
@@ -13,19 +13,21 @@ import torch
 
 def qr_pos(M):
     """Thin QR with the diagonal of R made real-positive (QRpos).
-    Returns Q (m, k), R (k, n) with k = min(m, n)."""
+    Returns Q (..., m, k), R (..., k, n) with k = min(m, n); leading axes
+    are a batch (each matrix gets its own phases)."""
     Q, R = torch.linalg.qr(M, mode="reduced")
-    d = torch.diagonal(R)
+    d = torch.diagonal(R, dim1=-2, dim2=-1)
     ad = d.abs()
     # the |d| > 1e-30 guard keeps zero pivots (the padded, rank-deficient
     # edge panels) at phase 1 instead of 0/0
     phase = torch.where(ad > 1e-30, d / torch.clamp(ad, min=1e-30),
                         torch.ones_like(d))
-    return Q * phase[None, :], R * phase.conj()[:, None]
+    return Q * phase.unsqueeze(-2), R * phase.conj().unsqueeze(-1)
 
 
 def lq_pos(M):
-    """Thin LQ with the diagonal of L real-positive: M = L @ Q."""
+    """Thin LQ with the diagonal of L real-positive: M = L @ Q (batched
+    like qr_pos)."""
     Qh, Rh = qr_pos(M.mT.conj())
     return Rh.mT.conj(), Qh.mT.conj()
 

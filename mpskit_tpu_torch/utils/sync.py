@@ -8,6 +8,9 @@ of the eager port, and what a later CUDA-graph capture has to remove."""
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 count = 0
@@ -20,3 +23,14 @@ def to_host(*xs) -> list:
     if len(xs) == 1:
         return [xs[0].item()]
     return torch.stack([torch.as_tensor(x) for x in xs]).tolist()
+
+
+def to_host_array(*xs) -> np.ndarray:
+    """Tensors of any shape, flattened and joined in one transfer, as a
+    numpy array of their common dtype (e.g. an Arnoldi column and its
+    subdiagonal norm)."""
+    global count
+    count += 1
+    dtype = functools.reduce(torch.promote_types, (x.dtype for x in xs))
+    flat = torch.cat([x.reshape(-1).to(dtype) for x in xs])
+    return flat.cpu().resolve_conj().numpy()

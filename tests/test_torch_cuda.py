@@ -10,18 +10,27 @@ import pytest
 import torch
 
 from mpskit_tpu_torch import (
-    DMRG, FiniteMPS, expectation_value, find_groundstate,
+    DMRG, VUMPS, FiniteMPS, InfiniteMPS, expectation_value, find_groundstate,
     transverse_field_ising_lattice,
 )
 from mpskit_tpu_torch.algorithms import derivatives
 from mpskit_tpu_torch.config import matmul_precision
-from mpskit_tpu_torch.interop import finite_mps_from_numpy
+from mpskit_tpu_torch.interop import (
+    finite_mps_from_numpy, infinite_mps_from_numpy,
+)
 from mpskit_tpu_torch.kernels import ac_apply as k1
 
 
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: K1 is CUDA C++ and has no CPU mode")
+
+
+def _tfim_density(g):
+    """-(1/pi) int_0^pi sqrt(1 + g^2 - 2 g cos k) dk (Gauss-Legendre)."""
+    k, wk = np.polynomial.legendre.leggauss(200)
+    return float(-np.sum(wk * np.sqrt(1 + g * g - 2 * g * np.cos(
+        np.pi * (k + 1) / 2))) / 2)
 
 
 def _k1_inputs(D, d, w, seed):
@@ -121,3 +130,38 @@ def test_entry_points_build_on_the_card_by_default():
     ALs, AC = rng.standard_normal((4, 4, 2, 4)), rng.standard_normal((4, 2, 4))
     carried = finite_mps_from_numpy(ALs, ALs, AC, 0)
     assert carried.device.type == "cuda"
+    psi = InfiniteMPS.random(1, 2, 4, torch.float64)
+    assert psi.device.type == "cuda" and psi.C.device.type == "cuda"
+    A = rng.standard_normal((1, 4, 2, 4))
+    carried = infinite_mps_from_numpy(A, A, A, rng.standard_normal((1, 4, 4)))
+    assert carried.device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,D,rel_tol", [(torch.float32, 64, 1e-5),
+                                             (torch.float64, 12, None)])
+def test_vumps_on_card_matches_the_integral(dtype, D, rel_tol):
+    """VUMPS on the card against the exact TFIM energy density: float32 at
+    D=64 (fixed iterations, the bench's solver settings) within 1e-5
+    relative, float64 at D=12 to tol 1e-9 within 1e-7; neither launches
+    K1 (the site solves are exact, as in the JAX package)."""
+    _need_card()
+    g = 1.5
+    e0 = _tfim_density(g)
+    H = transverse_field_ising_lattice(g=g)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    psi = InfiniteMPS.random(1, 2, D, dtype, "cuda", gen)
+    if rel_tol is None:
+        alg = VUMPS(tol=1e-9, maxiter=150, verbosity=0)
+    else:
+        alg = VUMPS(tol=0.0, maxiter=30, krylovdim=10, eig_maxrestarts=2,
+                    gauge_tol=1e-8, verbosity=0)
+    before = k1.launches
+    psi, envs, _ = find_groundstate(psi, H, alg)
+    assert k1.launches == before
+    e = float(expectation_value(psi, H, envs)[0])
+    if rel_tol is None:
+        assert abs(e - e0) < 1e-7
+        assert abs(float(envs.e_density) - e0) < 1e-7
+    else:
+        assert abs(e - e0) <= rel_tol * abs(e0)

@@ -7,9 +7,13 @@ import numpy as np
 import pytest
 import torch
 
-from mpskit_tpu_torch import FiniteMPS, transverse_field_ising_lattice
+from mpskit_tpu_torch import (
+    FiniteMPS, InfiniteMPS, transverse_field_ising_lattice,
+)
 from mpskit_tpu_torch.environments import finite as tenv
-from mpskit_tpu_torch.interop import finite_mps_from_numpy
+from mpskit_tpu_torch.interop import (
+    finite_mps_from_numpy, infinite_mps_from_numpy,
+)
 
 L, d, D = 4, 2, 4
 
@@ -20,12 +24,19 @@ def _arrays():
     return As, As.copy(), rng.standard_normal((D, d, D))
 
 
+def _infinite_arrays():
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((1, D, d, D))
+    return A, A.copy(), A.copy(), rng.standard_normal((1, D, D))
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device would work")
 
 
-@pytest.mark.parametrize("entry", ["random", "from_numpy"])
+@pytest.mark.parametrize("entry", ["random", "from_numpy",
+                                   "infinite_random", "infinite_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
     _no_card()
     # CPU-only torch raises AssertionError ("not compiled with CUDA"), a
@@ -33,8 +44,12 @@ def test_entry_points_default_to_the_card(entry):
     with pytest.raises((AssertionError, RuntimeError)):
         if entry == "random":
             FiniteMPS.random(L, d, D, torch.float64)
-        else:
+        elif entry == "from_numpy":
             finite_mps_from_numpy(*_arrays(), 0)
+        elif entry == "infinite_random":
+            InfiniteMPS.random(1, d, D, torch.float64)
+        else:
+            infinite_mps_from_numpy(*_infinite_arrays())
 
 
 def test_entry_points_on_the_cpu_when_asked():
@@ -46,6 +61,17 @@ def test_entry_points_on_the_cpu_when_asked():
     carried = finite_mps_from_numpy(ALs, ARs, AC, 2, device="cpu")
     assert carried.device.type == "cpu" and carried.center == 2
     assert torch.equal(carried.AC, torch.from_numpy(AC))
+
+
+def test_infinite_entry_points_on_the_cpu_when_asked():
+    gen = torch.Generator().manual_seed(0)
+    psi = InfiniteMPS.random(2, d, D, torch.float64, "cpu", gen)
+    assert psi.device.type == "cpu" and psi.AC.shape == (2, D, d, D)
+    assert psi.AL.device.type == psi.AR.device.type == psi.C.device.type
+    AL, AR, AC, C = _infinite_arrays()
+    carried = infinite_mps_from_numpy(AL, AR, AC, C, device="cpu")
+    assert carried.device.type == "cpu" and carried.period == 1
+    assert torch.equal(carried.C, torch.from_numpy(C))
 
 
 @pytest.mark.parametrize("helper", ["left_boundary", "right_boundary",
