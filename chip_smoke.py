@@ -31,7 +31,31 @@ Phases, in order; any failure exits non-zero:
      iteration split by synchronizations into environments, AC solves,
      C solves and regauge, and one under torch.profiler for the device's
      busy time; gates on the energy density, finiteness, shapes and zero
-     K1 launches (the VUMPS site solves are exact).
+     K1 launches (the VUMPS site solves are exact);
+  8. f64 two-site DMRG: find_groundstate with DMRG2 on TFIM L=16 D=32
+     (truncbelow(1e-9)) against the closed form, and on spin-1 Heisenberg
+     L=6 D=27 against exact diagonalization (729 states), each to 1e-8;
+  9. the two-site slice at full width: DMRG2(krylovdim=10,
+     eig_maxrestarts=2, trscheme=truncdim(256)) on spin-1 Heisenberg L=32
+     D=256 float32 for 4 sweeps through find_groundstate, with per-sweep
+     times, host syncs and largest discarded weight, and the metric
+     dmrg2_sweep_time_heisenberg_s1_L32_D256_float32 (mean of sweeps 2-4)
+     in a JSON line; then one more sweep timed plainly, one split by
+     synchronizations into eigensolves, SVD splits, environment pushes and
+     the rest, one under torch.profiler for the device's busy time and idle
+     share, and the 768 x 768 SVD on a two-site spectrum by each route
+     (torch's default, each cuSOLVER driver, float64, a float64 Gram
+     matrix) in CUDA events with its accuracy; gates: the energy within
+     1e-5 relative of a float64 one-site DMRG continuation to eps 1e-9 (the
+     trscheme chain of find_groundstate), fresh environments agreeing,
+     finite tensors of the right shapes, zero K1 launches;
+ 10. bonds and IDMRG in float64: IDMRG1 on a one-site cell and IDMRG2 on a
+     two-site cell (truncbelow(1e-10)) on TFIM g=1.5 at D=12 within 1e-6 of
+     the exact density; phase 6's VUMPS state grown by OptimalExpand(12)
+     (D 24, density kept to 1e-7, AL isometries to 1e-10), then cut by
+     VUMPSSvdCut(truncbelow(1e-8)) (period 2, density within 1e-5); phase
+     4's DMRG state cut by SvdCut(truncbelow(1e-12)) (overlap 1 within
+     1e-8); zero K1 launches.
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
 """
@@ -64,6 +88,9 @@ VUMPS_D, VUMPS_G = 256, 1.5
 VUMPS_ARGS = dict(m=10, restarts=2, gauge_tol=1e-8, env_tol_static=1e-8,
                   inner_tol=1e-6)
 VUMPS_WARMUP, VUMPS_BATCH, VUMPS_REPS = 8, 32, 3
+# the two-site configuration of BASELINE.json:8 at its full width
+DMRG2_L, DMRG2_D, DMRG2_SWEEPS = 32, 256, 4
+E_TOL_IDMRG = 1e-6     # absolute, float64 energy density at D=12
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -284,6 +311,7 @@ def phase_f64():
         f"{time.perf_counter() - t0:.1f} s")
     if not abs(E - e0) <= E_TOL_F64:
         raise RuntimeError("float64 DMRG energy misses the closed form")
+    return psi
 
 
 def phase_slice():
@@ -364,6 +392,7 @@ def phase_vumps_f64():
         raise RuntimeError("float64 VUMPS energy misses the exact density")
     if k1.launches != launches:
         raise RuntimeError("float64 VUMPS launched K1")
+    return psi
 
 
 def _vumps_split(psi, H, env, marks):
@@ -410,9 +439,12 @@ def _device_busy_ms(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(spans) / 1e3 if sum(spans) > 0 else None), len(spans)
+    # the raw trace: `prof.events()` would parse it into Python event
+    # objects first, minutes for the ~10^6 device operations of a DMRG2
+    # sweep
+    spans = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return (sum(spans) / 1e6 if sum(spans) > 0 else None), len(spans)
 
 
 def phase_vumps_slice():
@@ -516,6 +548,333 @@ def phase_vumps_slice():
         raise RuntimeError("VUMPS launched K1: its site solves must be exact")
 
 
+def phase_dmrg2_f64():
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG2, FiniteMPS, expectation_value, find_groundstate, heisenberg_XXX,
+        notrunc, transverse_field_ising_lattice, truncbelow,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    H_s1 = heisenberg_XXX(spin=1)
+    e_ed = float(np.linalg.eigvalsh(H_s1.to_matrix(6))[0])
+    cases = (("TFIM g=1.5 L=16 D=32, truncbelow(1e-9)",
+              transverse_field_ising_lattice(g=1.5), 16, 2, 32,
+              truncbelow(1e-9), tfim_open_chain_e0(16, 1.5)),
+             ("spin-1 Heisenberg L=6 D=27 (ED, 729 states)", H_s1, 6, 3, 27,
+              notrunc(), e_ed))
+    launches = k1.launches
+    for name, H, L, d, D, scheme, e0 in cases:
+        psi = FiniteMPS.random(L, d, D, torch.float64, "cuda", gen)
+        t0 = time.perf_counter()
+        psi, envs, eps = find_groundstate(
+            psi, H, DMRG2(maxiter=50, trscheme=scheme, verbosity=0))
+        E = float(expectation_value(psi, H, envs))
+        log(f"[dmrg2-f64] {name}: E={E:.15f} E0={e0:.15f} |dE|="
+            f"{abs(E - e0):.3e} (tol {E_TOL_F64}), eps={eps:.2e}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not abs(E - e0) <= E_TOL_F64:
+            raise RuntimeError(f"float64 DMRG2 misses the exact energy: {name}")
+    if k1.launches != launches:
+        raise RuntimeError("float64 DMRG2 launched K1")
+
+
+class _patched:
+    """Replace module attributes for the length of a `with` block (the
+    observers of phase 9: they time or record what the real sweep calls)."""
+
+    def __init__(self, module, **attrs):
+        self.module, self.attrs, self.saved = module, attrs, {}
+
+    def __enter__(self):
+        for name, value in self.attrs.items():
+            self.saved[name] = getattr(self.module, name)
+            setattr(self.module, name, value)
+
+    def __exit__(self, *exc):
+        for name, value in self.saved.items():
+            setattr(self.module, name, value)
+
+
+def _dmrg2_split(sweep, dmrg2):
+    """Run `sweep()` once with a synchronization around every eigensolve,
+    SVD split and environment push of `dmrg2._dmrg2_sweep_impl`; returns
+    {part: [ms, host syncs]} with the rest of the sweep as "other"."""
+    import torch
+    from mpskit_tpu_torch.utils import sync
+
+    parts = {"eigensolves": [0.0, 0], "SVD splits": [0.0, 0],
+             "environment pushes": [0.0, 0]}
+
+    def timed(part, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), sync.count
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            parts[part][0] += (time.perf_counter() - t0) * 1e3
+            parts[part][1] += sync.count - c0
+            return out
+        return run
+
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    with _patched(dmrg2,
+                  eigsh_smallest=timed("eigensolves", dmrg2.eigsh_smallest),
+                  _split2=timed("SVD splits", dmrg2._split2),
+                  transfer_left_mpo=timed("environment pushes",
+                                          dmrg2.transfer_left_mpo),
+                  transfer_right_mpo=timed("environment pushes",
+                                           dmrg2.transfer_right_mpo)):
+        sweep()
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    parts["other"] = [total - sum(v[0] for v in parts.values()),
+                      sync.count - c0 - sum(v[1] for v in parts.values())]
+    return total, parts
+
+
+def _svd_times():
+    """The slice's SVD shape, 768 x 768, on a matrix with a two-site
+    spectrum (singular values 10^(-8k/768), k = 0..767, in degenerate
+    triplets like SU(2) multiplets, between random orthogonal factors):
+    time per call (CUDA events) and accuracy of each route against the
+    known factors: the largest error of the singular values, of the
+    orthonormality of the 255 leading left vectors and of the rank-255
+    truncation (255: a whole number of triplets), and whether its
+    singular values equal those of torch's default bit for bit (which
+    names the driver the default picked). `svd_truncated` takes the
+    "float32 gesvd" route. Returns {route: (ms, S err, U orthonormality
+    err, truncation err, equal to the default)}."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    n, k = 3 * DMRG2_D, 3 * (DMRG2_D // 3)
+    f64 = torch.float64
+    s = 10.0 ** (-8.0 * 3 * (torch.arange(n, device="cuda", dtype=f64) // 3)
+                 / n)
+    U0 = torch.linalg.qr(torch.randn((n, n), generator=gen, dtype=f64,
+                                     device="cuda"))[0]
+    V0 = torch.linalg.qr(torch.randn((n, n), generator=gen, dtype=f64,
+                                     device="cuda"))[0]
+    M64 = (U0 * s) @ V0.T
+    Mk = (U0[:, :k] * s[:k]) @ V0[:, :k].T
+    M32 = M64.float()
+
+    def gram(M):
+        """SVD from the eigendecomposition of M^T M in float64."""
+        w, V = torch.linalg.eigh(M.double().T @ M.double())
+        S = torch.sqrt(torch.clamp(w.flip(0), min=0.0))
+        V = V.flip(1)
+        U = (M.double() @ V) / torch.clamp(S, min=1e-30 * S[0])
+        return U, S, V.T
+
+    routes = {}
+    for driver in (None, "gesvd", "gesvdj", "gesvda"):
+        routes[f"float32 {driver or 'default'}"] = (
+            lambda d=driver: torch.linalg.svd(M32, full_matrices=False,
+                                              driver=d))
+    for driver in (None, "gesvd"):
+        routes[f"float64 {driver or 'default'}"] = (
+            lambda d=driver: torch.linalg.svd(M32.double(),
+                                              full_matrices=False, driver=d))
+    routes["float64 Gram eigh"] = lambda: gram(M32)
+    out = {}
+    S_default = routes["float32 default"]()[1].double()
+    eye = torch.eye(k, dtype=f64, device="cuda")
+    for name, fn in routes.items():
+        U, S, Vh = (t.double() for t in fn())
+        out[name] = (
+            cuda_time_ms(fn, 3),
+            float((S - s).abs().max()),
+            float((U[:, :k].T @ U[:, :k] - eye).abs().max()),
+            float(((U[:, :k] * S[:k]) @ Vh[:k] - Mk).abs().max()),
+            torch.equal(S, S_default))
+    return out
+
+
+def _log_svd_times():
+    for name, (ms, s_err, u_err, k_err, same) in _svd_times().items():
+        log(f"[svd] {3 * DMRG2_D} x {3 * DMRG2_D} from float32, {name}: "
+            f"{ms:.3f} ms per call (CUDA events, 3 calls); max error: "
+            f"singular values {s_err:.2e}, orthonormality of the leading "
+            f"left vectors {u_err:.2e}, truncation {k_err:.2e}; singular "
+            f"values {'equal' if same else 'differ from'} the default's")
+
+
+def phase_dmrg2_slice():
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, DMRG2, FiniteMPS, expectation_value, find_groundstate,
+        heisenberg_XXX, truncdim,
+    )
+    from mpskit_tpu_torch.algorithms import dmrg2
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.environments.finite import stack_W
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+    from mpskit_tpu_torch.utils.dynamictols import updatetol
+
+    L, d, D, sweeps = DMRG2_L, 3, DMRG2_D, DMRG2_SWEEPS
+    H = heisenberg_XXX(spin=1)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    psi = FiniteMPS.random(L, d, D, torch.float32, "cuda", gen)
+    scheme, m, restarts = truncdim(D), 10, 2
+    marks, errs = [], []
+
+    def mark(it, psi, H):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), sync.count))
+
+    def recorded(*args, **kwargs):
+        out = sweep_impl(*args, **kwargs)
+        errs.append(out[5])
+        return out
+
+    sweep_impl = dmrg2._dmrg2_sweep_impl
+    alg = DMRG2(tol=0.0, maxiter=sweeps, krylovdim=m, eig_maxrestarts=restarts,
+                trscheme=scheme, finalize=mark, verbosity=0)
+    k1.launches = 0
+    torch.cuda.synchronize()
+    sync.count = 0
+    marks.append((time.perf_counter(), 0))
+    with _patched(dmrg2, _dmrg2_sweep_impl=recorded):
+        psi, envs, eps = find_groundstate(psi, H, alg)
+    torch.cuda.synchronize()
+    times = [marks[k][0] - marks[k - 1][0] for k in range(1, len(marks))]
+    syncs = [marks[k][1] - marks[k - 1][1] for k in range(1, len(marks))]
+    for k, (t, c, e) in enumerate(zip(times, syncs, errs), 1):
+        log(f"[dmrg2] sweep {k}: {t:.3f} s, {c} host syncs, largest "
+            f"discarded weight {e:.3e}")
+    value = sum(times[1:]) / len(times[1:])
+    per_sweep = sum(syncs[1:]) / len(syncs[1:])
+    log(json.dumps({"metric": "dmrg2_sweep_time_heisenberg_s1_L32_D256_float32",
+                    "value": value, "unit": "s",
+                    "host_syncs_per_sweep": per_sweep}))
+
+    # outside the timed run, from its final state: one sweep timed plainly,
+    # one split by synchronizations, one under the profiler
+    Ws = stack_W(H, L, psi.dtype, psi.device)
+    sup = torch.as_tensor(dmrg2.bond_support_vectors(L, d, D), device="cuda")
+    inner_tol = updatetol(eps, sweeps + 1)
+
+    def sweep():
+        return sweep_impl(psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone(),
+                          Ws, envs.GRs.clone(), inner_tol, m, restarts, scheme,
+                          sup=sup)
+
+    with matmul_precision():
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), sync.count
+        sweep()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        log(f"[dmrg2] one more sweep: {plain:.1f} ms, {sync.count - c0} host "
+            "syncs")
+        total, parts = _dmrg2_split(sweep, dmrg2)
+        log(f"[dmrg2] the same sweep split ({total:.1f} ms): " + "; ".join(
+            f"{n} {t:.1f} ms ({t / total:.1%}, {c} syncs)"
+            for n, (t, c) in parts.items()))
+        busy, n_dev = _device_busy_ms(sweep)
+        log("[dmrg2] the same sweep under torch.profiler: " + (
+            f"{n_dev} kernels and copies on the device, busy {busy:.1f} ms "
+            f"of the plain sweep's {plain:.1f} ms, idle share "
+            f"{1 - busy / plain:.1%}" if busy else
+            "no device time in the trace: idle share not measured"))
+        _log_svd_times()
+    launches = k1.launches
+
+    E = float(expectation_value(psi, H, envs))
+    E_fresh = float(expectation_value(psi, H))
+    # the trscheme chain of find_groundstate: one-site DMRG from the DMRG2
+    # state, here in float64
+    psi64 = FiniteMPS(psi.ALs.double(), psi.ARs.double(), psi.AC.double(), 0)
+    t0 = time.perf_counter()
+    psi64, envs64, eps64 = find_groundstate(
+        psi64, H, DMRG(tol=1e-9, maxiter=12, verbosity=0))
+    E64 = float(expectation_value(psi64, H, envs64))
+    rel = abs(E - E64) / abs(E64)
+    log(f"[dmrg2] spin-1 Heisenberg L={L} D={D} float32: E={E:.8f} (fresh "
+        f"envs {E_fresh:.8f}); float64 one-site continuation E={E64:.10f} "
+        f"eps={eps64:.2e} (tol 1e-9) in {time.perf_counter() - t0:.1f} s; "
+        f"rel diff {rel:.3e} (tol {E_TOL_F32}); K1 launches in this phase: "
+        f"{launches}")
+    shapes = {"ALs": (L, D, d, D), "ARs": (L, D, d, D), "AC": (D, d, D)}
+    for name, shape in shapes.items():
+        t = getattr(psi, name)
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise RuntimeError(f"DMRG2 {name} is not finite or has shape "
+                               f"{tuple(t.shape)}, expected {shape}")
+    if not eps64 < 1e-9:
+        raise RuntimeError("the float64 continuation did not converge")
+    if not rel <= E_TOL_F32:
+        raise RuntimeError("float32 DMRG2 energy misses the float64 one")
+    if not abs(E - E_fresh) <= E_TOL_F32 * abs(E64):
+        raise RuntimeError("the returned environments disagree with fresh ones")
+    if launches != 0:
+        raise RuntimeError("DMRG2 launched K1: its bond solves must be exact")
+
+
+def phase_bonds(psi_vumps, psi_dmrg):
+    import torch
+    from mpskit_tpu_torch import (
+        IDMRG1, IDMRG2, InfiniteMPS, OptimalExpand, SvdCut, VUMPSSvdCut,
+        changebonds, expectation_value, find_groundstate,
+        transverse_field_ising_lattice, truncbelow,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    g, D = 1.5, 12
+    e0 = tfim_density(g)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    launches = k1.launches
+    for name, period, alg in (
+            ("IDMRG1", 1, IDMRG1(tol=1e-10, maxiter=300, verbosity=0)),
+            ("IDMRG2", 2, IDMRG2(tol=1e-10, maxiter=200,
+                                 trscheme=truncbelow(1e-10), verbosity=0))):
+        H = transverse_field_ising_lattice(g=g, period=period)
+        psi = InfiniteMPS.random(period, 2, D, torch.float64, "cuda", gen)
+        t0 = time.perf_counter()
+        psi, envs, err = find_groundstate(psi, H, alg)
+        e = expectation_value(psi, H, envs).cpu().numpy()
+        de = float(np.abs(e - e0).max())
+        log(f"[bonds] {name} TFIM g={g} D={D} cell {period}: e={e} "
+            f"|de|={de:.3e} (tol {E_TOL_IDMRG}), err={err:.2e}, "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not de <= E_TOL_IDMRG:
+            raise RuntimeError(f"{name} misses the exact energy density")
+
+    H = transverse_field_ising_lattice(g=g)
+    e_small = float(expectation_value(psi_vumps, H)[0])
+    grown = changebonds(psi_vumps, H, OptimalExpand(dims=D))
+    e_grown = float(expectation_value(grown, H)[0])
+    iso = max(float((torch.einsum("lpm,lpn->mn", A.conj(), A)
+                     - torch.eye(grown.D, dtype=A.dtype, device=A.device))
+                    .abs().max()) for A in grown.AL)
+    cut = changebonds(grown, H, VUMPSSvdCut(truncbelow(1e-8)))
+    e_cut = expectation_value(cut, H).cpu().numpy()
+    log(f"[bonds] OptimalExpand({D}): D {psi_vumps.D} -> {grown.D}, e "
+        f"{e_small:.15f} -> {e_grown:.15f} (|de| {abs(e_grown - e_small):.3e},"
+        f" tol 1e-7), AL isometry error {iso:.2e} (tol 1e-10); "
+        f"VUMPSSvdCut(truncbelow(1e-8)): period {cut.period}, e={e_cut}, "
+        f"|de| vs exact {float(np.abs(e_cut - e0).max()):.3e} (tol 1e-5)")
+    if grown.D != 2 * D or not abs(e_grown - e_small) <= 1e-7 or iso > 1e-10:
+        raise RuntimeError("OptimalExpand changed the state or its gauge")
+    if cut.period != 2 or not float(np.abs(e_cut - e0).max()) <= 1e-5:
+        raise RuntimeError("VUMPSSvdCut misses the exact energy density")
+
+    cut = changebonds(psi_dmrg, SvdCut(truncbelow(1e-12)))
+    ov = abs(complex(psi_dmrg.dot(cut)))
+    log(f"[bonds] SvdCut(truncbelow(1e-12)) on the TFIM L=16 D=32 DMRG "
+        f"state: |<psi|cut>| = {ov:.15f} (tol 1e-8); K1 launches in this "
+        f"phase: {k1.launches - launches}")
+    if not abs(ov - 1.0) <= 1e-8:
+        raise RuntimeError("SvdCut below 1e-12 changed the finite state")
+    if k1.launches != launches:
+        raise RuntimeError("float64 IDMRG or changebonds launched K1")
+
+
 def main():
     sys.path.insert(0, str(REPO))
     phase_device()
@@ -523,10 +882,13 @@ def main():
 
     phase_build()
     k1 = phase_k1()
-    phase_f64()
+    psi_dmrg = phase_f64()
     launches = phase_slice()
-    phase_vumps_f64()
+    psi_vumps = phase_vumps_f64()
     phase_vumps_slice()
+    phase_dmrg2_f64()
+    phase_dmrg2_slice()
+    phase_bonds(psi_vumps, psi_dmrg)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,

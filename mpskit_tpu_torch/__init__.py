@@ -7,12 +7,18 @@ the effective-Hamiltonian matvecs with the bf16 kernel K1, DMRG and the
 finite expectation value. Slice 1 redesigned K1 for Hopper. Slice 4 adds
 the infinite ground states: GMRES and Arnoldi, uniform gauging and
 InfiniteMPS, the infinite environments, VUMPS, the infinite expectation
-values and the InfiniteMPS and chained branches of find_groundstate. The
-package imports torch and never jax; the JAX package stays the reference
-the tests hold it to."""
+values and the InfiniteMPS and chained branches of find_groundstate.
+Slice 5 adds two-site DMRG, IDMRG1/2 and bond-dimension management: the
+truncated SVD and its schemes, null spaces, `changebonds` with SvdCut,
+RandExpand, OptimalExpand and VUMPSSvdCut, and the entanglement spectrum
+and entropy. The package imports torch and never jax; the JAX package
+stays the reference the tests hold it to."""
 
 from .algorithms import (
-    DMRG, VUMPS, expectation_value, find_groundstate, find_groundstate_dmrg,
+    DMRG, DMRG2, IDMRG1, IDMRG2, VUMPS, OptimalExpand, RandExpand, SvdCut,
+    VUMPSSvdCut, changebonds, entanglement_spectrum, entropy,
+    expectation_value, find_groundstate, find_groundstate_dmrg,
+    find_groundstate_dmrg2, find_groundstate_idmrg1, find_groundstate_idmrg2,
     find_groundstate_vumps,
 )
 from .models.hamiltonians import (
@@ -21,3 +27,7 @@ from .models.hamiltonians import (
 from .operators.mpo import MPOHamiltonian
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
+from .tensors.ops import (
+    TruncationScheme, leftnull, leftorth, lq_pos, notrunc, qr_pos, rightnull,
+    rightorth, svd_truncated, truncbelow, truncdim, truncerr,
+)

@@ -1,10 +1,10 @@
 """Effective-Hamiltonian applications (counterpart of
 mpskit_tpu/algorithms/derivatives.py).
 
-`ac_apply` and `c_apply` are plain einsums, left to cuBLAS as the JAX
-package leaves them to XLA. `ac_apply_fast` is the inexact matvec of the
-first Lanczos restart; for float32 on the card it is the hand-written bf16
-kernel K1 (kernels/csrc/ac_apply_bf16.cu)."""
+`ac_apply`, `c_apply` and the two-site `ac2_apply` are plain einsums,
+left to cuBLAS as the JAX package leaves them to XLA. `ac_apply_fast` is
+the inexact matvec of the first Lanczos restart; for float32 on the card
+it is the hand-written bf16 kernel K1 (kernels/csrc/ac_apply_bf16.cu)."""
 
 from __future__ import annotations
 
@@ -41,3 +41,12 @@ def c_apply(GL, GR, x):
     """H_eff^{C}(x)[l, r] = GL[a,l,y] x[y,n] GR[a,r,n]."""
     t = torch.einsum("axy,yn->axn", GL, x)
     return torch.einsum("axn,arn->xr", t, GR)
+
+
+def ac2_apply(GL, W1, W2, GR, x):
+    """Two-site derivative: x[l, s1, s2, r] ->
+    GL[a,l,y] W1[a,b,s1,t1] W2[b,c,s2,t2] x[y,t1,t2,n] GR[c,r,n]."""
+    t = torch.einsum("axy,yuvn->axuvn", GL, x)          # w d^2 D^3
+    t = torch.einsum("axuvn,absu->bxsvn", t, W1)        # w^2 d^3 D^2
+    t = torch.einsum("bxsvn,bcqv->cxsqn", t, W2)        # w^2 d^3 D^2
+    return torch.einsum("cxsqn,crn->xsqr", t, GR)       # w d^2 D^3

@@ -1,63 +1,73 @@
 """`find_groundstate` dispatcher (counterpart of
-mpskit_tpu/algorithms/find_groundstate.py: its FiniteMPS -> DMRG,
-InfiniteMPS -> VUMPS and chained-algorithm branches)."""
+mpskit_tpu/algorithms/find_groundstate.py: its FiniteMPS, InfiniteMPS and
+chained-algorithm branches)."""
 
 from __future__ import annotations
 
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from .dmrg import DMRG, find_groundstate_dmrg
+from .dmrg2 import DMRG2, find_groundstate_dmrg2
+from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
+    find_groundstate_idmrg2
 from .unionalg import ChainedAlg
 from .vumps import VUMPS, find_groundstate_vumps
+
+_FINITE = ((DMRG, find_groundstate_dmrg), (DMRG2, find_groundstate_dmrg2))
+_INFINITE = ((VUMPS, find_groundstate_vumps),
+             (IDMRG1, find_groundstate_idmrg1),
+             (IDMRG2, find_groundstate_idmrg2))
 
 
 def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
                      maxiter: int = 100, trscheme=None, verbosity=None):
     """find_groundstate(psi, H[, alg]) -> (psi, envs, epsilon).
 
-    A FiniteMPS runs one-site DMRG (`alg` None or a DMRG). An InfiniteMPS
-    runs VUMPS: with `alg` None at max(tol, 1e-9), where the JAX package
-    refines a tighter tol by GradientGrassmann. A ChainedAlg runs its
-    stages in turn. The other branches of the JAX dispatcher come with
-    later slices of the port and raise NotImplementedError naming theirs
-    (ROADMAP.md, queue 1)."""
+    With `alg` None a FiniteMPS runs one-site DMRG, first DMRG2 at
+    max(tol, 1e-8) when a `trscheme` is given; an InfiniteMPS runs VUMPS at
+    max(tol, 1e-9), where the JAX package refines a tighter tol by
+    GradientGrassmann. Otherwise `alg` picks the solver: DMRG or DMRG2 for
+    a FiniteMPS, VUMPS, IDMRG1 or IDMRG2 for an InfiniteMPS; a ChainedAlg
+    runs its stages in turn. The other branches of the JAX dispatcher come
+    with later slices of the port and raise NotImplementedError naming
+    theirs (ROADMAP.md, queue 1)."""
     kw = {} if verbosity is None else {"verbosity": verbosity}
+    if not isinstance(psi, (FiniteMPS, InfiniteMPS)):
+        raise NotImplementedError(
+            f"find_groundstate for {type(psi).__name__} is not ported yet: "
+            "windows and symmetric states come with later slices "
+            "(ROADMAP.md)")
     if isinstance(alg, ChainedAlg):
         envs_out, eps = envs, None
         for stage in alg:
             psi, envs_out, eps = find_groundstate(psi, H, stage)
         return psi, envs_out, eps
-    if isinstance(psi, InfiniteMPS):
-        if alg is None:
-            vumps_tol = max(tol, 1e-9)
-            psi, envs_out, eps = find_groundstate_vumps(
-                psi, H, VUMPS(tol=vumps_tol, maxiter=maxiter, **kw))
-            if tol < vumps_tol and eps > tol:
-                raise NotImplementedError(
-                    f"find_groundstate: VUMPS stopped at eps={eps:.3e} above "
-                    f"tol={tol:.1e}; the GradientGrassmann refinement that "
-                    "follows comes with queue-1 item 9 (ROADMAP.md). Pass "
-                    "tol >= 1e-9 or an explicit VUMPS")
-            return psi, envs_out, eps
-        if isinstance(alg, VUMPS):
-            return find_groundstate_vumps(psi, H, alg)
-        raise NotImplementedError(
-            f"find_groundstate for InfiniteMPS with {type(alg).__name__} is "
-            "not ported yet: IDMRG comes with queue-1 slice 6, "
-            "GradientGrassmann with item 9 (ROADMAP.md)")
-    if not isinstance(psi, FiniteMPS):
-        raise NotImplementedError(
-            f"find_groundstate for {type(psi).__name__} is not ported yet: "
-            "windows and symmetric states come with later slices "
-            "(ROADMAP.md)")
-    if trscheme is not None:
-        raise NotImplementedError(
-            "find_groundstate with trscheme runs DMRG2, which comes with "
-            "queue-1 slice 6 (ROADMAP.md)")
+    if alg is None and isinstance(psi, FiniteMPS):
+        if trscheme is not None:
+            psi, _, _ = find_groundstate_dmrg2(
+                psi, H, DMRG2(tol=max(tol, 1e-8), maxiter=maxiter,
+                              trscheme=trscheme, **kw))
+        return find_groundstate_dmrg(
+            psi, H, DMRG(tol=tol, maxiter=maxiter, **kw))
     if alg is None:
-        alg = DMRG(tol=tol, maxiter=maxiter, **kw)
-    if not isinstance(alg, DMRG):
-        raise NotImplementedError(
-            f"find_groundstate with {type(alg).__name__} is not ported yet: "
-            "DMRG2 comes with queue-1 slice 6 (ROADMAP.md)")
-    return find_groundstate_dmrg(psi, H, alg)
+        vumps_tol = max(tol, 1e-9)
+        psi, envs_out, eps = find_groundstate_vumps(
+            psi, H, VUMPS(tol=vumps_tol, maxiter=maxiter, **kw))
+        if tol < vumps_tol and eps > tol:
+            raise NotImplementedError(
+                f"find_groundstate: VUMPS stopped at eps={eps:.3e} above "
+                f"tol={tol:.1e}; the GradientGrassmann refinement that "
+                "follows comes with queue-1 item 9 (ROADMAP.md). Pass "
+                "tol >= 1e-9 or an explicit VUMPS")
+        return psi, envs_out, eps
+    table = _FINITE if isinstance(psi, FiniteMPS) else _INFINITE
+    for cls, run in table:
+        if isinstance(alg, cls):
+            return run(psi, H, alg)
+    if isinstance(alg, tuple(cls for cls, _ in _FINITE + _INFINITE)):
+        raise TypeError(
+            f"{type(alg).__name__} does not run on {type(psi).__name__}")
+    raise NotImplementedError(
+        f"find_groundstate with {type(alg).__name__} is not ported yet: "
+        "GradientGrassmann comes with queue-1 item 9, RealSpaceParallelDMRG "
+        "with item 10 (ROADMAP.md)")

@@ -134,3 +134,23 @@ class FiniteMPS:
             AC = torch.einsum("lpm,mr->lpr", ALs[c - 1], C)
             c -= 1
         return FiniteMPS(ALs, ARs, AC, c)
+
+    def bond_matrix(self):
+        """C to the right of the center site: AC = AL . C."""
+        _, C = leftorth(self.AC)
+        return C
+
+    def dot(self, other: "FiniteMPS"):
+        """<self | other> (0-dim tensor); the two states may have different
+        bond dimensions."""
+        a = self.move_center(0)
+        b = other.move_center(0)
+        dt = torch.promote_types(self.dtype, other.dtype)
+        # only the (0, 0) entry of the padded left boundary is physical
+        v = torch.zeros((self.D, other.D), dtype=dt, device=self.device)
+        v[0, 0] = 1.0
+        for i in range(self.length):
+            Ta = (a.AC if i == 0 else a.ARs[i]).to(dt)
+            Tb = (b.AC if i == 0 else b.ARs[i]).to(dt)
+            v = torch.einsum("xy,xsm,ysn->mn", v, Ta.conj(), Tb)
+        return v[0, 0]

@@ -1,12 +1,22 @@
-"""Sign-fixed QR/LQ and the MPS gauge moves (counterpart of the parts of
-mpskit_tpu/tensors/ops.py on the DMRG and VUMPS paths).
+"""Sign-fixed QR/LQ, the MPS gauge moves, null spaces and the truncated
+SVD (counterpart of mpskit_tpu/tensors/ops.py).
 
 Conventions: MPS site tensor ``A[l, p, r]``, bond matrix ``C[l, r]``. All
 decompositions keep static shapes: a rank-deficient panel keeps its full
-width and carries zeros.
+width and carries zeros, and a truncation zeroes singular values instead
+of dropping them.
+
+The JAX package's `_svd_via_gram` is not here: it works around a TPU
+compiler crash and runs only on that backend. `svd_truncated` calls
+`torch.linalg.svd`, the branch the JAX package runs on the CPU and GPU,
+with cuSOLVER's QR-based `gesvd` chosen on the card (see
+`svd_truncated`).
 """
 
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -87,3 +97,102 @@ def rightorth(A):
         Q = torch.nn.functional.pad(Q, (0, 0, 0, l - k))
         L = torch.nn.functional.pad(L, (0, l - k))
     return L, Q.reshape(l, p, r)
+
+
+def leftnull(A):
+    """Orthonormal basis of the complement of the columns of A reshaped
+    (l*p, r): VL (l, p, l*p - r) with VL^dag A = 0 and VL^dag VL = 1."""
+    l, p, r = A.shape
+    Q, _ = torch.linalg.qr(A.reshape(l * p, r), mode="complete")
+    return Q[:, r:].reshape(l, p, l * p - r)
+
+
+def rightnull(A):
+    """Row-space complement of A reshaped (l, p*r): VR (p*r - l, p, r) with
+    A VR^dag = 0 and VR VR^dag = 1."""
+    l, p, r = A.shape
+    Q, _ = torch.linalg.qr(A.reshape(l, p * r).mH, mode="complete")
+    return Q[:, l:].mH.reshape(p * r - l, p, r)
+
+
+@dataclasses.dataclass(frozen=True)
+class TruncationScheme:
+    """Static truncation policy (same fields as the JAX package's).
+
+    dim: keep at most `dim` singular values.
+    err: also drop the smallest values while the discarded 2-norm fraction
+         stays below `err`.
+    below: drop singular values below `below` (absolute)."""
+
+    dim: Optional[int] = None
+    err: Optional[float] = None
+    below: Optional[float] = None
+
+
+def truncdim(d: int) -> TruncationScheme:
+    return TruncationScheme(dim=d)
+
+
+def truncerr(e: float, dim: Optional[int] = None) -> TruncationScheme:
+    return TruncationScheme(err=e, dim=dim)
+
+
+def truncbelow(e: float, dim: Optional[int] = None) -> TruncationScheme:
+    return TruncationScheme(below=e, dim=dim)
+
+
+def notrunc() -> TruncationScheme:
+    return TruncationScheme()
+
+
+def svd_truncated(M, Dmax: int, trunc: TruncationScheme = TruncationScheme()):
+    """SVD of M (m, n) cut or zero-padded to the static width Dmax.
+
+    Returns (U (m, Dmax), S (Dmax,), Vh (Dmax, n), err): the scheme's cut
+    is zeros in S and in the matching columns of U and rows of Vh; err is
+    the discarded 2-norm fraction sqrt(sum of discarded S^2) / norm, a
+    0-dim tensor (no host sync).
+
+    On the card the SVD is cuSOLVER's QR-based `gesvd`. The default there,
+    torch's and XLA's alike below 1024 x 1024, is the Jacobi `gesvdj`: on
+    an H100 it left the float32 vectors of a 768 x 768 two-site matrix
+    7.9e-4 from orthonormal (`chip_smoke.py`'s `[svd]` lines) and put a
+    float32 DMRG2 energy 4.7e-3 below the float64 one (PERF.md)."""
+    U, S, Vh = torch.linalg.svd(M, full_matrices=False,
+                                driver="gesvd" if M.is_cuda else None)
+    k = S.shape[0]
+    if k >= Dmax:
+        U, Vh = U[:, :Dmax], Vh[:Dmax]
+        discarded_sq = torch.sum(S[Dmax:] ** 2)
+        S = S[:Dmax]
+    else:
+        U = torch.nn.functional.pad(U, (0, Dmax - k))
+        Vh = torch.nn.functional.pad(Vh, (0, 0, 0, Dmax - k))
+        S = torch.nn.functional.pad(S, (0, Dmax - k))
+        discarded_sq = torch.zeros((), dtype=S.dtype, device=S.device)
+
+    keep = torch.ones(Dmax, dtype=torch.bool, device=S.device)
+    if trunc.dim is not None and trunc.dim < Dmax:
+        keep[trunc.dim:] = False
+    if trunc.below is not None:
+        keep = keep & (S > trunc.below)
+    sq = S ** 2
+    total = torch.sum(sq) + discarded_sq
+    if trunc.err is not None:
+        # tail[i] = sum_{j >= i} S[j]^2 on the descending S: drop the
+        # smallest values while the discarded weight stays below err^2
+        tail = torch.flip(torch.cumsum(torch.flip(sq, (0,)), 0), (0,))
+        keep = keep & ((tail + discarded_sq) > trunc.err ** 2 * total)
+
+    maskf = keep.to(S.dtype)
+    disc = discarded_sq + torch.sum(sq * (1.0 - maskf))
+    err = torch.sqrt(torch.clamp(disc, min=0.0)
+                     / torch.clamp(total, min=1e-30))
+    return (U * maskf.to(U.dtype), S * maskf,
+            Vh * maskf[:, None].to(Vh.dtype), err)
+
+
+def safe_xlogx(x):
+    """x * log(x) with 0 log 0 = 0."""
+    pos = x > 0
+    return torch.where(pos, x * torch.log(torch.where(pos, x, 1.0)), 0.0)

@@ -10,8 +10,9 @@ import pytest
 import torch
 
 from mpskit_tpu_torch import (
-    DMRG, VUMPS, FiniteMPS, InfiniteMPS, expectation_value, find_groundstate,
-    transverse_field_ising_lattice,
+    DMRG, DMRG2, VUMPS, FiniteMPS, InfiniteMPS, expectation_value,
+    find_groundstate, heisenberg_XXX, svd_truncated,
+    transverse_field_ising_lattice, truncbelow, truncdim,
 )
 from mpskit_tpu_torch.algorithms import derivatives
 from mpskit_tpu_torch.config import matmul_precision
@@ -165,3 +166,49 @@ def test_vumps_on_card_matches_the_integral(dtype, D, rel_tol):
         assert abs(float(envs.e_density) - e0) < 1e-7
     else:
         assert abs(e - e0) <= rel_tol * abs(e0)
+
+
+@pytest.mark.cuda
+def test_dmrg2_on_card_matches_float64():
+    """Spin-1 Heisenberg L=16 at D=64: eight float32 two-site sweeps on the
+    card (the slice's solver settings) against a float64 run of the same
+    settings to tol 1e-10 on the card, within 1e-5 relative; no K1 launch
+    (the two-site solves are exact)."""
+    _need_card()
+    L, D = 16, 64
+    H = heisenberg_XXX(spin=1)
+    energies = {}
+    before = k1.launches
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 0.0)):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        psi = FiniteMPS.random(L, 3, D, dtype, "cuda", gen)
+        psi, envs, _ = find_groundstate(
+            psi, H, DMRG2(tol=tol, maxiter=8, krylovdim=10, eig_maxrestarts=2,
+                          trscheme=truncdim(D), verbosity=0))
+        assert psi.AC.dtype == dtype and torch.isfinite(psi.AC).all()
+        energies[dtype] = float(expectation_value(psi, H, envs))
+    assert k1.launches == before
+    e64, e32 = energies[torch.float64], energies[torch.float32]
+    assert abs(e32 - e64) <= 1e-5 * abs(e64)
+
+
+@pytest.mark.cuda
+def test_svd_truncated_on_card_matches_cpu():
+    """A padded rank-deficient float32 matrix on the card against the same
+    matrix in float64 on the CPU: Schmidt values, the discarded weight and
+    U S Vh to float32 accuracy, under a cut by count and by value."""
+    _need_card()
+    rng = np.random.default_rng(8)
+    M = np.zeros((300, 240))
+    U0 = np.linalg.qr(rng.standard_normal((200, 150)))[0]
+    V0 = np.linalg.qr(rng.standard_normal((160, 150)))[0]
+    M[:200, :160] = (U0 * np.logspace(0, -6, 150)) @ V0.T
+    for scheme in (truncdim(100), truncbelow(1e-4)):
+        out = svd_truncated(torch.from_numpy(M).float().cuda(), 128, scheme)
+        ref = svd_truncated(torch.from_numpy(M), 128, scheme)
+        U, S, Vh, err = (t.double().cpu() for t in out)
+        Ur, Sr, Vhr, errr = ref
+        assert U.shape == (300, 128) and Vh.shape == (128, 240)
+        assert float((S - Sr).abs().max()) <= 1e-5
+        assert abs(float(err) - float(errr)) <= 1e-5
+        assert float(((U * S) @ Vh - (Ur * Sr) @ Vhr).abs().max()) <= 1e-5

@@ -367,7 +367,7 @@ def test_device_batch_changes_nothing():
 def test_find_groundstate_infinite_dispatch():
     """The default tol (below VUMPS's 1e-9 floor) raises for the missing
     GradientGrassmann refinement only where it would run; a ChainedAlg
-    runs its stages; IDMRG-style algorithms are not ported."""
+    runs its stages; a finite-chain algorithm is refused."""
     H = transverse_field_ising_lattice(g=G)
     psi = InfiniteMPS.random(1, 2, 6, torch.float64, "cpu",
                              torch.Generator().manual_seed(2))
@@ -380,5 +380,5 @@ def test_find_groundstate_infinite_dispatch():
     assert len(chained) == 2
     _, envs, eps = find_groundstate(psi, H, chained)
     assert np.isfinite(eps) and np.isfinite(float(envs.e_density))
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(TypeError, match="DMRG does not run on InfiniteMPS"):
         find_groundstate(psi, H, DMRG())
