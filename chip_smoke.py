@@ -55,7 +55,31 @@ Phases, in order; any failure exits non-zero:
      (D 24, density kept to 1e-7, AL isometries to 1e-10), then cut by
      VUMPSSvdCut(truncbelow(1e-8)) (period 2, density within 1e-5); phase
      4's DMRG state cut by SvdCut(truncbelow(1e-12)) (overlap 1 within
-     1e-8); zero K1 launches.
+     1e-8); zero K1 launches;
+ 11. time evolution in complex128: TDVP and TDVP2 (TFIM g=0.5, L=8,
+     D=16, 3 steps of dt=0.05) against expm(-i H t) to 1e-10 in 1 -
+     |overlap|; time_evolve with WII and TaylorCluster(2) at L=6 within
+     the JAX test's 3 L dt^2 per step of the exact state; infinite TDVP
+     (TFIM g=1.2 -> 1.5, D=32, from a VUMPS ground state, 3 steps) on the
+     card against the same steps on the CPU to 1e-8; a complex64
+     ac_apply at D=256 against complex128 (1e-5: no TF32); zero K1
+     launches;
+ 12. the time-evolution slice at full width, the quench of
+     scripts/tpu_complex_check.py:47-49: a float32 TFIM g=1.5 ground state
+     at L=32 D=256 (DMRG tol 1e-8, 12 sweeps, within 1e-5 of the closed
+     form), made complex (re-canonicalized in complex128, rounded to
+     complex64) and evolved under g=0.5 by 3 timesteps of
+     dt=0.05 with TDVP(expalg_m=20), with per-step times, host syncs,
+     worst Krylov estimate, energy and norm, and the metric
+     tdvp_step_time_tfim_quench_L32_D256_complex64 (mean of steps 2-3) in
+     a JSON line; then one more step timed plainly, one split by
+     synchronizations into AC exponentials, C exponentials, QR/LQ,
+     environment pushes and the rest, one under torch.profiler (busy
+     time, idle share, the ten largest device operations); gates: E(0)
+     within 1e-4 of the JAX value, each complex64 energy within 1e-5 of a
+     complex128 run of the same steps, the complex128 drift 1e-10, the
+     complex64 norm within 1e-5 of 1, finite tensors of the right shapes,
+     zero K1 launches in the steps.
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
 """
@@ -91,6 +115,18 @@ VUMPS_WARMUP, VUMPS_BATCH, VUMPS_REPS = 8, 32, 3
 # the two-site configuration of BASELINE.json:8 at its full width
 DMRG2_L, DMRG2_D, DMRG2_SWEEPS = 32, 256, 4
 E_TOL_IDMRG = 1e-6     # absolute, float64 energy density at D=12
+# the quench of scripts/tpu_complex_check.py:47-49 at its full width
+TDVP_L, TDVP_D, TDVP_G0, TDVP_G1 = 32, 256, 1.5, 0.5
+TDVP_DT, TDVP_STEPS, TDVP_M = 0.05, 3, 20
+TDVP_INF_D, TDVP_INF_G0, TDVP_INF_G1 = 32, 1.2, 1.5
+# E of H(g=0.5) in the g=1.5 ground state, JAX CPU complex128
+# (TPU_COMPLEX_r04.json, tdvp_quench_split.energies_cpu_c128[0])
+E_T0_REF = -25.091058415155615
+E_TOL_QUENCH_T0 = 1e-4   # relative: two float32 ground states
+E_TOL_TDVP_EXACT = 1e-10  # 1 - |overlap| with expm(-i H t), complex128
+E_TOL_TDVP_INF = 1e-8    # absolute, card against CPU, complex128
+E_TOL_TDVP_DRIFT = 1e-10  # relative, complex128 one-site TDVP energy
+C64_MATVEC_TOL = 1e-5    # relative; complex64 rounding, TF32 would be 1e-3
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -430,8 +466,9 @@ def _vumps_split(psi, H, env, marks):
 
 def _device_busy_ms(fn):
     """Device time of the kernels and copies that `fn` launches, summed
-    from a torch.profiler trace, and their count (None, 0 if the trace
-    holds no device time)."""
+    from a torch.profiler trace, their count, and {name: [ms, count]} of
+    the operations by name (None, 0, {} if the trace holds no device
+    time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -442,9 +479,15 @@ def _device_busy_ms(fn):
     # the raw trace: `prof.events()` would parse it into Python event
     # objects first, minutes for the ~10^6 device operations of a DMRG2
     # sweep
-    spans = [e.duration_ns() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == torch.autograd.DeviceType.CUDA]
-    return (sum(spans) / 1e6 if sum(spans) > 0 else None), len(spans)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            entry = by_name.setdefault(e.name(), [0.0, 0])
+            entry[0] += e.duration_ns() / 1e6
+            entry[1] += 1
+    busy = sum(v[0] for v in by_name.values())
+    return ((busy if busy > 0 else None), sum(v[1] for v in by_name.values()),
+            by_name)
 
 
 def phase_vumps_slice():
@@ -520,7 +563,8 @@ def phase_vumps_slice():
         # the profiled iteration repeats the split one (same state, same
         # environments), so its device time is set against the split's
         # wall time, which the profiler does not inflate
-        busy, n_dev = _device_busy_ms(lambda: iterate(psi_end, env_end, 1))
+        busy, n_dev, _ = _device_busy_ms(
+            lambda: iterate(psi_end, env_end, 1))
         log("[vumps] the same iteration under torch.profiler: " + (
             f"{n_dev} kernels and copies on the device, busy {busy:.3f} ms "
             f"of the split's {total * 1e3:.3f} ms, idle share "
@@ -597,37 +641,36 @@ class _patched:
             setattr(self.module, name, value)
 
 
-def _dmrg2_split(sweep, dmrg2):
-    """Run `sweep()` once with a synchronization around every eigensolve,
-    SVD split and environment push of `dmrg2._dmrg2_sweep_impl`; returns
-    {part: [ms, host syncs]} with the rest of the sweep as "other"."""
+def _split_by_sync(run, module, part_of):
+    """Run `run()` once with a synchronization around every call of the
+    attributes of `module` named in `part_of` ({attribute: part, or a
+    function of the call's arguments that names the part}); returns
+    (total ms, {part: [ms, host syncs]}) with the rest as "other"."""
     import torch
     from mpskit_tpu_torch.utils import sync
 
-    parts = {"eigensolves": [0.0, 0], "SVD splits": [0.0, 0],
-             "environment pushes": [0.0, 0]}
+    parts = {}
 
-    def timed(part, fn):
-        def run(*args, **kwargs):
+    def timed(name, fn):
+        label = part_of[name]
+
+        def call(*args, **kwargs):
+            part = label(*args, **kwargs) if callable(label) else label
             torch.cuda.synchronize()
             t0, c0 = time.perf_counter(), sync.count
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            parts[part][0] += (time.perf_counter() - t0) * 1e3
-            parts[part][1] += sync.count - c0
+            entry = parts.setdefault(part, [0.0, 0])
+            entry[0] += (time.perf_counter() - t0) * 1e3
+            entry[1] += sync.count - c0
             return out
-        return run
+        return call
 
     torch.cuda.synchronize()
     t0, c0 = time.perf_counter(), sync.count
-    with _patched(dmrg2,
-                  eigsh_smallest=timed("eigensolves", dmrg2.eigsh_smallest),
-                  _split2=timed("SVD splits", dmrg2._split2),
-                  transfer_left_mpo=timed("environment pushes",
-                                          dmrg2.transfer_left_mpo),
-                  transfer_right_mpo=timed("environment pushes",
-                                           dmrg2.transfer_right_mpo)):
-        sweep()
+    with _patched(module, **{name: timed(name, getattr(module, name))
+                             for name in part_of}):
+        run()
     torch.cuda.synchronize()
     total = (time.perf_counter() - t0) * 1e3
     parts["other"] = [total - sum(v[0] for v in parts.values()),
@@ -772,11 +815,14 @@ def phase_dmrg2_slice():
         plain = (time.perf_counter() - t0) * 1e3
         log(f"[dmrg2] one more sweep: {plain:.1f} ms, {sync.count - c0} host "
             "syncs")
-        total, parts = _dmrg2_split(sweep, dmrg2)
+        total, parts = _split_by_sync(sweep, dmrg2, {
+            "eigsh_smallest": "eigensolves", "_split2": "SVD splits",
+            "transfer_left_mpo": "environment pushes",
+            "transfer_right_mpo": "environment pushes"})
         log(f"[dmrg2] the same sweep split ({total:.1f} ms): " + "; ".join(
             f"{n} {t:.1f} ms ({t / total:.1%}, {c} syncs)"
             for n, (t, c) in parts.items()))
-        busy, n_dev = _device_busy_ms(sweep)
+        busy, n_dev, _ = _device_busy_ms(sweep)
         log("[dmrg2] the same sweep under torch.profiler: " + (
             f"{n_dev} kernels and copies on the device, busy {busy:.1f} ms "
             f"of the plain sweep's {plain:.1f} ms, idle share "
@@ -875,6 +921,275 @@ def phase_bonds(psi_vumps, psi_dmrg):
         raise RuntimeError("float64 IDMRG or changebonds launched K1")
 
 
+def _mps_vector(psi):
+    """The d^L state vector of a small FiniteMPS, as a host complex128
+    array (the padded boundary bonds contribute their index 0)."""
+    p = psi.move_center(0)
+    v = p.AC[:1].cpu().resolve_conj().numpy()
+    for i in range(1, psi.length):
+        v = np.tensordot(v, p.ARs[i].cpu().resolve_conj().numpy(), axes=1)
+    return v[..., :1].reshape(-1).astype(np.complex128)
+
+
+def _exact_evolution(H, L, v0, t):
+    """exp(-i H t) v0 from the eigendecomposition of the dense H."""
+    E, V = np.linalg.eigh(H.to_matrix(L))
+    return V @ (np.exp(-1j * E * t) * (V.conj().T @ v0))
+
+
+def phase_tdvp_f64():
+    import torch
+    from mpskit_tpu_torch import (
+        TDVP, TDVP2, VUMPS, WII, FiniteMPS, InfiniteMPS, TaylorCluster,
+        expectation_value, find_groundstate, time_evolve, timestep,
+        transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.algorithms.derivatives import ac_apply
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    c128 = torch.complex128
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    launches = k1.launches
+
+    # both finite integrators are exact at full bond dimension
+    L, D, dt = 8, 16, TDVP_DT
+    H = transverse_field_ising_lattice(g=TDVP_G1)
+    psi0 = FiniteMPS.random(L, 2, D, c128, "cuda", gen)
+    v0 = _mps_vector(psi0)
+    exact = _exact_evolution(H, L, v0, TDVP_STEPS * dt)
+    for name, alg in (("TDVP", TDVP()), ("TDVP2", TDVP2())):
+        psi = psi0
+        t0 = time.perf_counter()
+        for k in range(TDVP_STEPS):
+            psi, _ = timestep(psi, H, k * dt, dt, alg)
+        v = _mps_vector(psi)
+        err = 1 - abs(np.vdot(exact, v))
+        log(f"[tdvp-f64] {name} TFIM g={TDVP_G1} L={L} D={D}, "
+            f"{TDVP_STEPS} steps of dt={dt}: 1 - |<exact|psi>| = {err:.3e} "
+            f"(tol {E_TOL_TDVP_EXACT}), 1 - |<psi0|psi>| = "
+            f"{1 - abs(np.vdot(v0, v)):.3e}, {time.perf_counter() - t0:.1f} s")
+        if not err <= E_TOL_TDVP_EXACT:
+            raise RuntimeError(f"{name} misses the exact evolution")
+
+    # the evolution MPOs through time_evolve, without truncation
+    L, D, dt = 6, 8, 0.02
+    psi0 = FiniteMPS.random(L, 2, D, c128, "cuda", gen)
+    v0 = _mps_vector(psi0)
+    exact = _exact_evolution(H, L, v0, 2 * dt)
+    bound = 2 * 3 * L * dt ** 2   # tests/test_timeevo_mpo.py:40, two steps
+    for name, alg in (("WII", WII()), ("TaylorCluster(2)", TaylorCluster(2))):
+        psi, _ = time_evolve(psi0, H, [0.0, dt, 2 * dt], alg)
+        v = _mps_vector(psi)
+        dist = float(np.linalg.norm(v * np.exp(-1j * np.angle(
+            np.vdot(exact, v))) - exact))
+        log(f"[tdvp-f64] time_evolve {name} L={L} D={D}, 2 steps of "
+            f"dt={dt}: |psi - exact| = {dist:.3e} (bound {bound:.3e}), "
+            f"on {psi.device}")
+        if not (dist <= bound and psi.device.type == "cuda"):
+            raise RuntimeError(f"time_evolve with {name} misses the exact "
+                               "evolution")
+
+    # infinite TDVP, on the card and on the CPU from the same state
+    H0 = transverse_field_ising_lattice(g=TDVP_INF_G0)
+    H1 = transverse_field_ising_lattice(g=TDVP_INF_G1)
+    psi = InfiniteMPS.random(1, 2, TDVP_INF_D, torch.float64, "cuda", gen)
+    psi, _, eps = find_groundstate(psi, H0, VUMPS(tol=1e-10, maxiter=200,
+                                                  verbosity=0))
+    states = {dev: InfiniteMPS(*(x.to(device=dev, dtype=c128) for x in (
+        psi.AL, psi.AR, psi.AC, psi.C))) for dev in ("cuda", "cpu")}
+    es = {}
+    for dev, p in states.items():
+        envs, es[dev] = None, []
+        t0 = time.perf_counter()
+        for k in range(TDVP_STEPS):
+            p, envs = timestep(p, H1, k * TDVP_DT, TDVP_DT, TDVP(), envs=envs)
+            es[dev].append(float(expectation_value(p, H1)[0]))
+        log(f"[tdvp-f64] infinite TDVP on {dev}, TFIM g={TDVP_INF_G0} -> "
+            f"{TDVP_INF_G1}, D={TDVP_INF_D} (VUMPS eps {eps:.1e}): e(t) = "
+            f"{es[dev]}, {time.perf_counter() - t0:.1f} s")
+    de = max(abs(a - b) for a, b in zip(es["cuda"], es["cpu"]))
+    log(f"[tdvp-f64] infinite TDVP card vs CPU: max |de| = {de:.3e} (tol "
+        f"{E_TOL_TDVP_INF})")
+    if not de <= E_TOL_TDVP_INF:
+        raise RuntimeError("infinite TDVP on the card disagrees with the CPU")
+
+    # a complex64 matvec on cuBLAS against complex128: TF32 would show as
+    # ~1e-3 relative
+    D, w, d = TDVP_D, 3, 2
+
+    def crandn(*shape):
+        return torch.complex(torch.randn(shape, generator=gen, device="cuda",
+                                         dtype=torch.float64),
+                             torch.randn(shape, generator=gen, device="cuda",
+                                         dtype=torch.float64))
+
+    GL, W, GR, x = crandn(w, D, D) / D, crandn(w, w, d, d), \
+        crandn(w, D, D) / D, crandn(D, d, D)
+    with matmul_precision():
+        y64 = ac_apply(*(t.to(torch.complex64) for t in (GL, W, GR, x)))
+        y128 = ac_apply(GL, W, GR, x)
+    rel = float((y64.to(c128) - y128).norm() / y128.norm())
+    log(f"[tdvp-f64] complex64 ac_apply at D={D} against complex128: "
+        f"relative error {rel:.3e} (tol {C64_MATVEC_TOL}); K1 launches in "
+        f"this phase: {k1.launches - launches}")
+    if not rel <= C64_MATVEC_TOL:
+        raise RuntimeError("the complex64 matvec is not float32-exact")
+    if k1.launches != launches:
+        raise RuntimeError("time evolution launched K1")
+
+
+def _complex_start(psi):
+    """The float32 state psi as complex128 and complex64 states of one
+    vector: its center-0 tensors re-canonicalized in complex128 (float32
+    isometries are isometries only to float32 rounding, which would show
+    as a 1e-7 energy step in the first complex128 timestep), then rounded
+    to complex64."""
+    import torch
+    from mpskit_tpu_torch import FiniteMPS
+
+    p = psi.move_center(0)
+    As = torch.cat([p.AC[None], p.ARs[1:]]).to(torch.complex128)
+    psi128 = FiniteMPS.from_tensors(As)
+    psi64 = FiniteMPS(*(x.to(torch.complex64) for x in (
+        psi128.ALs, psi128.ARs, psi128.AC)), 0)
+    return {torch.complex64: psi64, torch.complex128: psi128}
+
+
+def phase_tdvp_slice():
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, TDVP, FiniteMPS, expectation_value, find_groundstate, timestep,
+        transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.algorithms import tdvp
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+
+    L, d, D, dt, n = TDVP_L, 2, TDVP_D, TDVP_DT, TDVP_STEPS
+    H0 = transverse_field_ising_lattice(g=TDVP_G0)
+    H1 = transverse_field_ising_lattice(g=TDVP_G1)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    psi = FiniteMPS.random(L, d, D, torch.float32, "cuda", gen)
+    t0 = time.perf_counter()
+    psi, envs, eps = find_groundstate(psi, H0, DMRG(tol=1e-8, maxiter=12,
+                                                    verbosity=0))
+    E_gs = float(expectation_value(psi, H0, envs))
+    e0 = tfim_open_chain_e0(L, TDVP_G0)
+    rel_gs = abs(E_gs - e0) / abs(e0)
+    log(f"[tdvp] ground state TFIM g={TDVP_G0} L={L} D={D} float32: "
+        f"E={E_gs:.8f} E0={e0:.8f} rel err {rel_gs:.3e} (tol {E_TOL_F32}), "
+        f"eps={eps:.2e}, {time.perf_counter() - t0:.1f} s")
+    if not rel_gs <= E_TOL_F32:
+        raise RuntimeError("the float32 ground state misses the closed form")
+
+    alg = TDVP(expalg_m=TDVP_M)
+    estimates = []
+
+    def recorded(alg_, exp_err, *args, **kwargs):
+        estimates.append(exp_err)
+        return warn(alg_, exp_err, *args, **kwargs)
+
+    warn = tdvp._warn_exp
+    trajectories = {}
+    for dtype, p in _complex_start(psi).items():
+        energies = [float(expectation_value(p, H1))]
+        norms, times, syncs = [], [], []
+        estimates.clear()
+        main = dtype == torch.complex64
+        if main:
+            k1.launches = 0
+        with _patched(tdvp, _warn_exp=recorded):
+            for k in range(n):
+                torch.cuda.synchronize()
+                t0, c0 = time.perf_counter(), sync.count
+                p, _ = timestep(p, H1, k * dt, dt, alg)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                syncs.append(sync.count - c0)
+                energies.append(float(expectation_value(p, H1)))
+                norms.append(float(p.norm()))
+        if main:
+            launches = k1.launches
+        trajectories[dtype] = (p, energies)
+        tag = str(dtype).replace("torch.", "")
+        for k in range(n):
+            log(f"[tdvp] {tag} step {k + 1}: {times[k]:.3f} s, {syncs[k]} "
+                f"host syncs, worst Krylov estimate {estimates[k]:.3e}, "
+                f"E={energies[k + 1]:.12f}, |norm - 1| = "
+                f"{abs(norms[k] - 1):.3e}")
+        if main:
+            value = sum(times[1:]) / len(times[1:])
+            log(json.dumps({
+                "metric": "tdvp_step_time_tfim_quench_L32_D256_complex64",
+                "value": value, "unit": "s",
+                "host_syncs_per_step": sum(syncs[1:]) / len(syncs[1:]),
+                "step_times_s": times}))
+            norm_err = max(abs(x - 1) for x in norms)
+
+    p64, E64 = trajectories[torch.complex64]
+    p128, E128 = trajectories[torch.complex128]
+    rel_t0 = abs(E64[0] - E_T0_REF) / abs(E_T0_REF)
+    rel_64 = max(abs(a - b) for a, b in zip(E64, E128)) / abs(E128[0])
+    drift = max(abs(e - E128[0]) for e in E128) / abs(E128[0])
+    log(f"[tdvp] quench to g={TDVP_G1}: E(0) = {E64[0]:.12f} against "
+        f"{E_T0_REF} (JAX CPU complex128) rel {rel_t0:.3e} (tol "
+        f"{E_TOL_QUENCH_T0}); complex64 against complex128 over the steps "
+        f"rel {rel_64:.3e} (tol {E_TOL_F32}); complex128 drift {drift:.3e} "
+        f"(tol {E_TOL_TDVP_DRIFT}); complex64 max |norm - 1| {norm_err:.3e} "
+        f"(tol {E_TOL_F32}); K1 launches during the steps: {launches}")
+
+    # outside the timed run, from its final state: one more step timed
+    # plainly, one split by synchronizations, one under the profiler
+    def step():
+        return timestep(p64, H1, n * dt, dt, alg)
+
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    step()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    log(f"[tdvp] one more step: {plain:.1f} ms, {sync.count - c0} host "
+        "syncs")
+    total, parts = _split_by_sync(step, tdvp, {
+        "expm_multiply_err": lambda mv, v, *a, **k: (
+            "AC exponentials" if v.dim() == 3 else "C exponentials"),
+        "leftorth": "QR/LQ", "rightorth": "QR/LQ",
+        "transfer_left_mpo": "environment pushes",
+        "transfer_right_mpo": "environment pushes",
+        "compute_right_envs": "environment pushes"})
+    log(f"[tdvp] the same step split ({total:.1f} ms): " + "; ".join(
+        f"{name} {t:.1f} ms ({t / total:.1%}, {c} syncs)"
+        for name, (t, c) in parts.items()))
+    busy, n_dev, by_name = _device_busy_ms(step)
+    log("[tdvp] the same step under torch.profiler: " + (
+        f"{n_dev} kernels and copies on the device, busy {busy:.1f} ms of "
+        f"the plain step's {plain:.1f} ms, idle share {1 - busy / plain:.1%}"
+        if busy else "no device time in the trace: idle share not measured"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (ms, count) in top:
+        log(f"[tdvp] device op {ms:.2f} ms in {count} calls: {name[:110]}")
+
+    for name, shape in (("ALs", (L, D, d, D)), ("ARs", (L, D, d, D)),
+                        ("AC", (D, d, D))):
+        for q in (p64, p128):
+            t = getattr(q, name)
+            if tuple(t.shape) != shape or not torch.isfinite(t).all():
+                raise RuntimeError(f"TDVP {name} is not finite or has shape "
+                                   f"{tuple(t.shape)}, expected {shape}")
+    if not rel_t0 <= E_TOL_QUENCH_T0:
+        raise RuntimeError("the quench energy at t=0 misses the JAX value")
+    if not rel_64 <= E_TOL_F32:
+        raise RuntimeError("complex64 TDVP energies miss the complex128 ones")
+    if not drift <= E_TOL_TDVP_DRIFT:
+        raise RuntimeError("complex128 TDVP does not conserve the energy")
+    if not norm_err <= E_TOL_F32:
+        raise RuntimeError("complex64 TDVP does not keep the norm")
+    if launches != 0:
+        raise RuntimeError("TDVP launched K1: its exponentials are exact")
+    return launches
+
+
 def main():
     sys.path.insert(0, str(REPO))
     phase_device()
@@ -889,13 +1204,15 @@ def main():
     phase_dmrg2_f64()
     phase_dmrg2_slice()
     phase_bonds(psi_vumps, psi_dmrg)
+    phase_tdvp_f64()
+    launches_tdvp = phase_tdvp_slice()
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-        "exact_ms": k1["exact_ms"]}]}))
+        "exact_ms": k1["exact_ms"], "launches_tdvp": launches_tdvp}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

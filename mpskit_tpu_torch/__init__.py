@@ -11,20 +11,24 @@ values and the InfiniteMPS and chained branches of find_groundstate.
 Slice 5 adds two-site DMRG, IDMRG1/2 and bond-dimension management: the
 truncated SVD and its schemes, null spaces, `changebonds` with SvdCut,
 RandExpand, OptimalExpand and VUMPSSvdCut, and the entanglement spectrum
-and entropy. The package imports torch and never jax; the JAX package
-stays the reference the tests hold it to."""
+and entropy. Slice 6 adds time evolution in native complex64/complex128:
+the Krylov exponentials, one-site TDVP on finite and infinite states,
+TDVP2, the WI/WII/TaylorCluster evolution MPOs as DenseMPOs, their
+application to finite states and time_evolve. The package imports torch
+and never jax; the JAX package stays the reference the tests hold it to."""
 
 from .algorithms import (
-    DMRG, DMRG2, IDMRG1, IDMRG2, VUMPS, OptimalExpand, RandExpand, SvdCut,
-    VUMPSSvdCut, changebonds, entanglement_spectrum, entropy,
-    expectation_value, find_groundstate, find_groundstate_dmrg,
-    find_groundstate_dmrg2, find_groundstate_idmrg1, find_groundstate_idmrg2,
-    find_groundstate_vumps,
+    DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VUMPS, WI, WII, OptimalExpand,
+    RandExpand, SvdCut, TaylorCluster, VUMPSSvdCut, changebonds,
+    entanglement_spectrum, entropy, expectation_value, find_groundstate,
+    find_groundstate_dmrg, find_groundstate_dmrg2, find_groundstate_idmrg1,
+    find_groundstate_idmrg2, find_groundstate_vumps, make_time_mpo,
+    time_evolve, timestep,
 )
 from .models.hamiltonians import (
     heisenberg_XXX, transverse_field_ising, transverse_field_ising_lattice,
 )
-from .operators.mpo import MPOHamiltonian
+from .operators.mpo import DenseMPO, MPOHamiltonian
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
 from .tensors.ops import (

@@ -1,6 +1,7 @@
 """Algorithms of the PyTorch port: finite one- and two-site DMRG, VUMPS,
 IDMRG, bond-dimension management, the expectation values, the
-entanglement toolbox and the find_groundstate dispatcher."""
+entanglement toolbox, the find_groundstate dispatcher, and time evolution
+(TDVP, TDVP2, the evolution MPOs and time_evolve)."""
 
 from .changebonds import (
     OptimalExpand, RandExpand, SvdCut, VUMPSSvdCut, changebonds,
@@ -11,6 +12,9 @@ from .expval import expectation_value
 from .find_groundstate import find_groundstate
 from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
     find_groundstate_idmrg2
+from .tdvp import TDVP, TDVP2, timestep
+from .time_evolve import time_evolve
+from .timeevmpo import WI, WII, TaylorCluster, make_time_mpo
 from .toolbox import entanglement_spectrum, entropy
 from .unionalg import ChainedAlg, UnionAlg
 from .vumps import VUMPS, find_groundstate_vumps

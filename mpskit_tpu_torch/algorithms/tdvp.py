@@ -1,0 +1,365 @@
+"""TDVP time evolution (counterpart of mpskit_tpu/algorithms/tdvp.py).
+
+Infinite: per-site Krylov exponentiation of AC and C, then a regauge.
+Finite: the second-order symmetric sweep, left to right then right to
+left, every site evolved forward by dt/2 with a backward bond evolution in
+between; TDVP2 does the same on two-site blocks with a truncated SVD.
+
+The JAX package runs a half sweep as one `lax.scan` that re-seats its
+outputs with `jnp.roll` and `.at[].set`, and skips the edge bond with a
+`lax.cond`. Here the half sweeps are host loops that write each output
+straight to its seat in a fresh stack, and the edge tests are host `if`s:
+the caller's tensors are never written. Every exponential is one Lanczos
+factorization with one host read (`linalg/expm.py`); the Krylov error
+estimates are host floats, so a step makes one sync per exponential.
+
+The evolution runs in the state's complex dtype (complex64 or complex128);
+a real state raises TypeError. The integrator is Krylov exp(-i dt H_eff).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..config import Defaults, matmul_precision
+from ..environments.finite import (
+    compute_right_envs, left_boundary, right_boundary, stack_W,
+)
+from ..environments.infinite_ham import hamiltonian_environments
+from ..linalg.expm import expm_multiply_err
+from ..operators.mpo import MPOHamiltonian
+from ..states.finitemps import FiniteMPS, support_mask
+from ..states.gauging import regauge_ACC, regauge_CAC
+from ..states.infinitemps import InfiniteMPS
+from ..tensors.ops import leftorth, notrunc, rightorth, svd_truncated
+from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
+from ..utils.logging import logger
+from .derivatives import ac2_apply, ac_apply, c_apply
+
+# states and operators of the JAX package that the port does not have yet,
+# and the queue-1 item (ROADMAP.md) that brings each
+_NOT_PORTED = {"WindowMPS": 10, "Window": 10, "LazySum": 10,
+               "MultipliedOperator": 10, "SU2FiniteMPS": 11,
+               "SymmetricFiniteMPS": 11, "SymmetricInfiniteMPS": 11}
+
+
+@dataclasses.dataclass(frozen=True)
+class TDVP:
+    """One-site TDVP parameters (same fields and defaults as
+    mpskit_tpu.algorithms.tdvp.TDVP). exp_tol: warn when the worst Krylov
+    truncation estimate of a step exceeds it."""
+
+    expalg_m: int = 30
+    gauge_tol: float = Defaults.tolgauge
+    env_tol: float = 1e-12
+    verbosity: int = Defaults.verbosity
+    finalize: Optional[Callable] = None
+    exp_tol: float = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class TDVP2:
+    expalg_m: int = 30
+    trscheme: object = None
+    verbosity: int = Defaults.verbosity
+    finalize: Optional[Callable] = None
+    exp_tol: float = 1e-6
+
+
+def _warn_exp(alg, exp_err: float, env_resid=None, name="TDVP"):
+    """Solver-quality warnings on the host: the Krylov exponential's
+    truncation estimate and, for infinite states, the environment GMRES
+    residual."""
+    if getattr(alg, "verbosity", 0) < 1:
+        return
+    if exp_err > getattr(alg, "exp_tol", 1e-6):
+        logger.warning(
+            "%s: Krylov exponential truncation estimate %.4e exceeds exp_tol "
+            "%.0e: increase expalg_m or reduce dt", name, exp_err,
+            alg.exp_tol)
+    if env_resid is not None and env_resid > 1e-6:
+        logger.warning("%s: environment geometric-series GMRES residual "
+                       "%.4e (not converged)", name, env_resid)
+
+
+def _not_ported(obj):
+    item = _NOT_PORTED.get(type(obj).__name__)
+    if item is not None:
+        raise NotImplementedError(
+            f"timestep on a {type(obj).__name__} is not ported yet: it comes "
+            f"with queue-1 item {item} (ROADMAP.md)")
+
+
+def _require_complex(dtype):
+    if not dtype.is_complex:
+        raise TypeError(
+            f"time evolution needs a complex state, got {dtype}: cast the "
+            "tensors to complex64 or complex128 first")
+
+
+# ----------------------------------------------------------------------------
+# infinite TDVP
+# ----------------------------------------------------------------------------
+
+def _timestep_infinite(psi: InfiniteMPS, H, dt, m: int, gauge_tol: float,
+                       env_tol: float, env_guess=None, A_mask=None,
+                       C_mask=None):
+    """One step: returns (psi', envs, exp_err). A_mask/C_mask: optional
+    abelian charge-conservation masks applied after the exponentials and
+    the regauge (the exponential of a charge-conserving H_eff commutes
+    with them, so they only remove rounding leakage)."""
+    L = psi.period
+    envs = hamiltonian_environments(psi, H, tol=env_tol, env_init=env_guess)
+    Ws = stack_W(H, L, psi.dtype, psi.device)
+    tau = -1j * dt
+    ACs, Cs, errs = [], [], []
+    for i in range(L):
+        GL, W, GR = envs.GLs[i], Ws[i], envs.GRs[i]
+        AC, err = expm_multiply_err(lambda x: ac_apply(GL, W, GR, x),
+                                    psi.AC[i], tau, m)
+        ACs.append(AC)
+        errs.append(err)
+    for i in range(L):
+        # bond i (right of site i) pairs GLs[i+1] with GRs[i]
+        GL, GR = envs.GLs[(i + 1) % L], envs.GRs[i]
+        C, err = expm_multiply_err(lambda x: c_apply(GL, GR, x), psi.C[i],
+                                   tau, m)
+        Cs.append(C)
+        errs.append(err)
+    ACs, Cs = torch.stack(ACs), torch.stack(Cs)
+    if A_mask is not None:
+        ACs = ACs * A_mask.to(ACs.dtype)
+        Cs = Cs * C_mask.to(Cs.dtype)
+    ACs = ACs / torch.linalg.vector_norm(ACs.reshape(L, -1),
+                                         dim=1)[:, None, None, None]
+    Cs = Cs / torch.linalg.vector_norm(Cs.reshape(L, -1), dim=1)[:, None, None]
+
+    ALs = regauge_ACC(ACs, Cs)
+    if A_mask is not None:
+        # a local regauge keeps the sector structure (the QR completions
+        # of from_AL's uniform gauging would refill the masked blocks)
+        Am = A_mask.to(ACs.dtype)
+        ARs = regauge_CAC(torch.roll(Cs, 1, dims=0), ACs) * Am
+        return InfiniteMPS(ALs * Am, ARs, ACs, Cs), envs, max(errs)
+    return (InfiniteMPS.from_AL(ALs, psi.C[L - 1], tol=gauge_tol), envs,
+            max(errs))
+
+
+# ----------------------------------------------------------------------------
+# finite TDVP
+# ----------------------------------------------------------------------------
+
+def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, masks=None):
+    """One symmetric second-order step, starting and ending with center 0.
+    Returns (ALs, ARs, AC, GRs, exp_err): new stacks (the inputs are not
+    written) and the worst Krylov estimate, a host float.
+
+    masks: optional (L, D, d, D) masks (rank support and/or abelian charge
+    conservation) re-applied after every decomposition: in float32 the QR
+    completions at rank-deficient padded sites otherwise leak out of the
+    supported block (the JAX package measured ~1e-2 norm drift over 3 steps
+    at L=32 D=256 f32 without them). PRECONDITION: ALs/ARs and GRs must be
+    masked / built from masked gauges already: environments walked through
+    unmasked ARs carry junk blocks that make H_eff move genuine weight off
+    the support, which the in-sweep masking then deletes."""
+    L, D = ALs.shape[0], ALs.shape[1]
+    w = Ws.shape[1]
+    dtype, device = AC.dtype, AC.device
+    tau = -1j * (dt / 2)
+    mk = None if masks is None else masks.to(device=device, dtype=dtype)
+    errs = []
+
+    # ---- left to right: site i forward, then its right bond backward ----
+    ALs_new = torch.empty_like(ALs)
+    GL = left_boundary(w, D, dtype, device)
+    GLs = torch.empty((L,) + tuple(GL.shape), dtype=dtype, device=device)
+    for i in range(L):
+        GLs[i] = GL
+        W, GR = Ws[i], GRs[i + 1]
+        AC, errA = expm_multiply_err(lambda x: ac_apply(GL, W, GR, x), AC,
+                                     tau, m)
+        if mk is not None:
+            AC = AC * mk[i]
+        AL, C = leftorth(AC)
+        if mk is not None:
+            AL = AL * mk[i]
+        GL = transfer_left_mpo(GL, W, AL, AL)
+        ALs_new[i] = AL
+        if i == L - 1:
+            # the last site keeps AC = AL C: the final center tensor
+            AC = torch.einsum("lpm,mr->lpr", AL, C)
+            errs.append(errA)
+        else:
+            C, errC = expm_multiply_err(lambda x: c_apply(GL, GR, x), C,
+                                        -tau, m)
+            AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
+            errs.append(max(errA, errC))
+
+    # ---- right to left: site i forward, then its left bond backward ----
+    # ARs[0] keeps its old value (the center ends at 0); GRs_new[i+1] is
+    # the environment right of site i and GRs_new[0] repeats GRs_new[1]
+    ARs_new = ARs.clone()
+    GRs_new = torch.empty_like(GRs)
+    GR = right_boundary(w, D, dtype, device)
+    for i in range(L - 1, -1, -1):
+        GRs_new[i + 1] = GR
+        GLi, W = GLs[i], Ws[i]
+        AC, errA = expm_multiply_err(lambda x: ac_apply(GLi, W, GR, x), AC,
+                                     tau, m)
+        if mk is not None:
+            AC = AC * mk[i]
+        C, AR = rightorth(AC)
+        if mk is not None:
+            AR = AR * mk[i]
+        GR = transfer_right_mpo(GR, W, AR, AR)
+        if i == 0:
+            AC = torch.einsum("lm,mpr->lpr", C, AR)
+            errs.append(errA)
+        else:
+            ARs_new[i] = AR
+            C, errC = expm_multiply_err(lambda x: c_apply(GLi, GR, x), C,
+                                        -tau, m)
+            AC = torch.einsum("lpm,mr->lpr", ALs_new[i - 1], C)
+            errs.append(max(errA, errC))
+    GRs_new[0] = GRs_new[1]
+    return ALs_new, ARs_new, AC, GRs_new, max(errs)
+
+
+def timestep(psi, H, t, dt, alg=None, envs=None):
+    """Evolve psi by one time step dt. Returns (psi, envs): for an
+    InfiniteMPS the environments of the step, which warm-start the next
+    one when passed back as `envs`; None for a FiniteMPS. `t` is where a
+    time-dependent operator would be evaluated (those come with queue-1
+    item 10, ROADMAP.md)."""
+    _not_ported(H)
+    _not_ported(psi)
+    if not isinstance(H, MPOHamiltonian):
+        raise TypeError(f"timestep takes an MPOHamiltonian, got "
+                        f"{type(H).__name__}")
+    if alg is None:
+        alg = TDVP()
+
+    if isinstance(psi, InfiniteMPS):
+        _require_complex(psi.dtype)
+        if isinstance(alg, TDVP2):
+            raise TypeError("TDVP2 evolves a FiniteMPS; an InfiniteMPS "
+                            "takes TDVP")
+        with matmul_precision():
+            psi, envs, exp_err = _timestep_infinite(
+                psi, H, dt, alg.expalg_m, alg.gauge_tol, alg.env_tol,
+                env_guess=envs)
+        _warn_exp(alg, exp_err, env_resid=envs.resid, name="TDVP(infinite)")
+        return psi, envs
+
+    if isinstance(psi, FiniteMPS):
+        _require_complex(psi.dtype)
+        if isinstance(alg, TDVP2):
+            return _timestep_finite2_entry(psi, H, dt, alg)
+        psi = psi.move_center(0)
+        L, D = psi.length, psi.D
+        dtype, device = psi.dtype, psi.device
+        smask = torch.as_tensor(support_mask(L, psi.physicaldim, D),
+                                device=device)
+        mk = smask.to(dtype)
+        with matmul_precision():
+            Ws = stack_W(H, L, dtype, device)
+            ALs0, ARs0, AC0 = psi.ALs * mk, psi.ARs * mk, psi.AC * mk[0]
+            GRs = compute_right_envs(
+                ARs0, Ws, right_boundary(Ws.shape[1], D, dtype, device))
+            ALs, ARs, AC, _, exp_err = _timestep_finite(
+                ALs0, ARs0, AC0, Ws, GRs, alg.expalg_m, dt=dt, masks=smask)
+        _warn_exp(alg, exp_err, name="TDVP(finite)")
+        return FiniteMPS(ALs, ARs, AC, 0), None
+
+    raise TypeError(type(psi))
+
+
+# ----------------------------------------------------------------------------
+# finite TDVP2
+# ----------------------------------------------------------------------------
+
+def _timestep_finite2_entry(psi: FiniteMPS, H, dt, alg: TDVP2):
+    trscheme = alg.trscheme or notrunc()
+    psi = psi.move_center(0)
+    L, D = psi.length, psi.D
+    dtype, device = psi.dtype, psi.device
+    with matmul_precision():
+        Ws = stack_W(H, L, dtype, device)
+        GRs = compute_right_envs(
+            psi.ARs, Ws, right_boundary(Ws.shape[1], D, dtype, device))
+        ALs, ARs, AC, _, exp_err = _timestep_finite2(
+            psi.ALs, psi.ARs, psi.AC, Ws, GRs, alg.expalg_m, trscheme, dt=dt)
+    _warn_exp(alg, exp_err, name="TDVP2")
+    return FiniteMPS(ALs, ARs, AC, 0), None
+
+
+def _split2(theta, trscheme):
+    """(D, d, d, D) -> AL (D, d, D), normalized Schmidt values S (D,) and
+    AR (D, d, D) by the truncated SVD."""
+    D, d = theta.shape[0], theta.shape[1]
+    U, S, Vh, _ = svd_truncated(theta.reshape(D * d, d * D), D, trscheme)
+    S = S / torch.clamp(torch.linalg.vector_norm(S), min=1e-30)
+    return U.reshape(D, d, D), S, Vh.reshape(D, d, D)
+
+
+def _timestep_finite2(ALs, ARs, AC, Ws, GRs, m: int, trscheme, dt=0.01):
+    """Two-site TDVP: forward-evolve each two-site block by dt/2, split it
+    with the truncated SVD, backward-evolve the one-site remainder (not at
+    the last bond of a half sweep). Same return convention as
+    `_timestep_finite`."""
+    L, D = ALs.shape[0], ALs.shape[1]
+    w = Ws.shape[1]
+    dtype, device = AC.dtype, AC.device
+    GL = left_boundary(w, D, dtype, device)
+    GRL = right_boundary(w, D, dtype, device)
+    tau = -1j * (dt / 2)
+    errs = []
+
+    # ---- left to right over bonds (i, i+1), i = 0..L-2 ----
+    # ALs[L-1] keeps its old value; GLs[i] is the environment left of site i
+    ALs_new = ALs.clone()
+    GLs = torch.empty((L - 1,) + tuple(GL.shape), dtype=dtype, device=device)
+    for i in range(L - 1):
+        GLs[i] = GL
+        W1, W2, GR = Ws[i], Ws[i + 1], GRs[i + 2]
+        theta = torch.einsum("lpm,mqr->lpqr", AC, ARs[i + 1])
+        theta, errT = expm_multiply_err(
+            lambda x: ac2_apply(GL, W1, W2, GR, x), theta, tau, m)
+        AL, S, AR = _split2(theta, trscheme)
+        GL = transfer_left_mpo(GL, W1, AL, AL)
+        ALs_new[i] = AL
+        AC = S[:, None, None] * AR
+        if i == L - 2:
+            errs.append(errT)
+        else:
+            AC, errB = expm_multiply_err(
+                lambda x: ac_apply(GL, W2, GR, x), AC, -tau, m)
+            errs.append(max(errT, errB))
+
+    # ---- right to left over bonds (i, i+1), i = L-2..0 ----
+    # ARs[0] keeps its old value; GRs_new[i+2] is the environment right of
+    # site i+1, and GRs_new[0] = GRs_new[1] repeat it for bond 0
+    ARs_new = ARs.clone()
+    GRs_new = torch.empty_like(GRs)
+    GR = GRL
+    for i in range(L - 2, -1, -1):
+        GRs_new[i + 2] = GR
+        GLi, W1, W2 = GLs[i], Ws[i], Ws[i + 1]
+        theta = torch.einsum("lpm,mqr->lpqr", ALs_new[i], AC)
+        theta, errT = expm_multiply_err(
+            lambda x: ac2_apply(GLi, W1, W2, GR, x), theta, tau, m)
+        AL, S, AR = _split2(theta, trscheme)
+        GR = transfer_right_mpo(GR, W2, AR, AR)
+        ARs_new[i + 1] = AR
+        AC = AL * S[None, None, :]
+        if i == 0:
+            errs.append(errT)
+        else:
+            AC, errB = expm_multiply_err(
+                lambda x: ac_apply(GLi, W1, GR, x), AC, -tau, m)
+            errs.append(max(errT, errB))
+    GRs_new[0] = GRs_new[1] = GRs_new[2]
+    return ALs_new, ARs_new, AC, GRs_new, max(errs)

@@ -4,6 +4,8 @@ mpskit_tpu/operators/mpo.py).
 The FSM is one dense stacked array ``W[i, a, b, s, t]`` (site, left FSM
 level, right FSM level, phys-out, phys-in), built and analysed on the host
 in numpy; `environments.finite.stack_W` moves it to the device on use.
+`DenseMPO` (the evolution operators of `algorithms/timeevmpo.py`) is host
+numpy too.
 
 Conventions: upper-triangular FSM, level 0 = "identity to the left",
 level w-1 = "identity to the right"; W[0,0] = W[w-1,w-1] = 1.
@@ -223,3 +225,94 @@ class MPOHamiltonian:
             E = np.einsum("aST,abst->bSsTt", E, self.W[i % self.period]).reshape(
                 w, dim * d, dim * d)
         return E[-1]
+
+    def to_densempo(self, L: int, tol: float = 1e-12) -> "DenseMPO":
+        """The finite chain of L sites as a DenseMPO with SVD-compressed
+        bonds: the FSM embedded densely (the boundary vectors absorbed into
+        the edge tensors) and every virtual bond truncated below `tol`,
+        which strips the FSM's zero blocks and shrinks the ragged edge
+        bonds."""
+        data = [np.array(self.site(i)) for i in range(L)]
+        data[0] = data[0][:1]          # left boundary selects level 0
+        data[-1] = data[-1][:, -1:]    # right boundary selects level w-1
+        return DenseMPO(tuple(data)).compress(tol)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseMPO:
+    """Dense MPO, the evolution operators' form: per-site host numpy tensors
+    O[i][a, b, s, t] (left, right virtual level, phys-out, phys-in). Finite
+    MPOs with ragged edge bonds keep their own shape per site; the device
+    copy is made on use (`operators.apply`)."""
+
+    Os: Tuple[np.ndarray, ...]
+
+    @property
+    def period(self) -> int:
+        return len(self.Os)
+
+    def site(self, i) -> np.ndarray:
+        return self.Os[i % self.period]
+
+    @staticmethod
+    def from_array(O, period: int = 1) -> "DenseMPO":
+        """O: one (w, w, d, d) site tensor repeated `period` times, or a
+        list of them."""
+        if isinstance(O, (list, tuple)):
+            return DenseMPO(tuple(np.asarray(o) for o in O))
+        return DenseMPO(tuple([np.asarray(O)] * period))
+
+    def stacked_uniform(self, dtype=None) -> np.ndarray:
+        """(L, w, w, d, d) array with ragged edge virtual legs zero-padded
+        to one width (valid entries at the leading indices; finite boundary
+        vectors select index 0 on both ends)."""
+        wmax = max(max(o.shape[0], o.shape[1]) for o in self.Os)
+        d = self.Os[0].shape[2]
+        out = np.zeros((len(self.Os), wmax, wmax, d, d),
+                       dtype or self.Os[0].dtype)
+        for i, o in enumerate(self.Os):
+            out[i, : o.shape[0], : o.shape[1]] = o
+        return out
+
+    def compress(self, tol: float = 1e-12) -> "DenseMPO":
+        """SVD compression of the virtual bonds: a left-to-right pass
+        truncating each right bond below `tol` (relative to its largest
+        singular value), then a right-to-left pass on the left bonds.
+        Returns a DenseMPO with (possibly ragged) reduced bonds."""
+        data = [np.asarray(o) for o in self.Os]
+        L = len(data)
+
+        def trunc_svd(M):
+            U, S, Vh = np.linalg.svd(M, full_matrices=False)
+            r = max(int(np.sum(S > tol * max(S[0], 1e-300))), 1)
+            return U[:, :r], S[:r], Vh[:r]
+
+        # left to right: compress the right leg, push S Vh into the next
+        for i in range(L):
+            a, b, ds, dt = data[i].shape
+            M = data[i].transpose(0, 2, 3, 1).reshape(a * ds * dt, b)
+            U, S, Vh = trunc_svd(M)
+            data[i] = U.reshape(a, ds, dt, -1).transpose(0, 3, 1, 2)
+            nxt = (i + 1) % L
+            data[nxt] = np.einsum("rb,bcst->rcst", S[:, None] * Vh,
+                                  data[nxt])
+        # right to left: compress the left leg, push U S into the previous
+        for i in range(L - 1, -1, -1):
+            a, b, ds, dt = data[i].shape
+            U, S, Vh = trunc_svd(data[i].reshape(a, b * ds * dt))
+            data[i] = Vh.reshape(-1, b, ds, dt)
+            prv = (i - 1) % L
+            data[prv] = np.einsum("abst,br->arst", data[prv],
+                                  U * S[None, :])
+        return DenseMPO(tuple(data))
+
+    def __matmul__(self, other: "DenseMPO") -> "DenseMPO":
+        """(self @ other)|psi> = self(other|psi>): site-wise product with the
+        virtual legs fused (self's level major)."""
+        assert self.period == other.period
+        out = []
+        for O1, O2 in zip(self.Os, other.Os):
+            d = O1.shape[2]
+            out.append(np.einsum("abst,cdtu->acbdsu", O1, O2).reshape(
+                O1.shape[0] * O2.shape[0], O1.shape[1] * O2.shape[1], d, d))
+        return DenseMPO(tuple(out))

@@ -212,3 +212,84 @@ def test_svd_truncated_on_card_matches_cpu():
         assert float((S - Sr).abs().max()) <= 1e-5
         assert abs(float(err) - float(errr)) <= 1e-5
         assert float(((U * S) @ Vh - (Ur * Sr) @ Vhr).abs().max()) <= 1e-5
+
+
+def _tfim_quench_start(device, dtype, L=8, D=16):
+    from mpskit_tpu_torch import transverse_field_ising
+
+    gen = torch.Generator(device=device).manual_seed(12)
+    return (FiniteMPS.random(L, 2, D, dtype, device, gen),
+            transverse_field_ising(g=0.5))
+
+
+@pytest.mark.cuda
+def test_tdvp_step_on_card_matches_cpu():
+    """One complex128 TDVP step (TFIM g=0.5, L=8, D=16) on the card
+    against the same step on the CPU: every tensor to 1e-10 (QR with a
+    positive diagonal is unique); no K1 launch."""
+    from mpskit_tpu_torch import TDVP, timestep
+
+    _need_card()
+    psi, H = _tfim_quench_start("cuda", torch.complex128)
+    cpu = FiniteMPS(psi.ALs.cpu(), psi.ARs.cpu(), psi.AC.cpu(), 0)
+    before = k1.launches
+    out, _ = timestep(psi, H, 0.0, 0.05, TDVP())
+    ref, _ = timestep(cpu, H, 0.0, 0.05, TDVP())
+    assert k1.launches == before and out.AC.device.type == "cuda"
+    for name in ("ALs", "ARs", "AC"):
+        diff = (getattr(out, name).cpu() - getattr(ref, name)).abs().max()
+        assert float(diff) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_complex64_tdvp_on_card_stays_near_complex128():
+    """Three complex64 TDVP steps on the card from a complex128 state
+    rounded to complex64: the energies within 1e-5 relative of the
+    complex128 steps and the norm within 1e-5 of 1."""
+    from mpskit_tpu_torch import TDVP, timestep
+
+    _need_card()
+    psi, H = _tfim_quench_start("cuda", torch.complex128)
+    states = {torch.complex128: psi,
+              torch.complex64: FiniteMPS(psi.ALs.to(torch.complex64),
+                                         psi.ARs.to(torch.complex64),
+                                         psi.AC.to(torch.complex64), 0)}
+    energies = {}
+    for dtype, p in states.items():
+        energies[dtype] = []
+        for k in range(3):
+            p, _ = timestep(p, H, k * 0.05, 0.05, TDVP(expalg_m=20))
+            assert p.AC.dtype == dtype
+            energies[dtype].append(float(expectation_value(p, H)))
+        if dtype == torch.complex64:
+            assert abs(float(p.norm()) - 1.0) <= 1e-5
+    for e64, e128 in zip(energies[torch.complex64],
+                         energies[torch.complex128]):
+        assert abs(e64 - e128) <= 1e-5 * abs(e128)
+
+
+@pytest.mark.cuda
+def test_time_evolution_entry_points_run_on_the_card_by_default():
+    """A default-built state evolves on the card through timestep (finite
+    and infinite), TDVP2 and time_evolve with TDVP and WII; the evolution
+    MPO stays a host array and moves to the card on use."""
+    from mpskit_tpu_torch import (
+        TDVP2, WII, make_time_mpo, time_evolve, timestep,
+        transverse_field_ising,
+    )
+
+    _need_card()
+    H = transverse_field_ising(g=0.5)
+    psi = FiniteMPS.random(6, 2, 8, torch.complex128)
+    assert psi.device.type == "cuda"
+    for alg in (None, TDVP2()):
+        out, _ = timestep(psi, H, 0.0, 0.05, alg)
+        assert out.AC.device.type == "cuda" and out.ARs.device.type == "cuda"
+    U = make_time_mpo(H, 0.05, WII())
+    assert isinstance(U.site(0), np.ndarray)
+    for alg in (None, WII()):
+        out, _ = time_evolve(psi, H, [0.0, 0.05, 0.1], alg)
+        assert out.AC.device.type == "cuda"
+    ipsi = InfiniteMPS.random(1, 2, 4, torch.complex128)
+    out, envs = timestep(ipsi, H, 0.0, 0.05)
+    assert out.AL.device.type == "cuda" and envs.GLs.device.type == "cuda"

@@ -86,3 +86,24 @@ def test_environment_helpers_need_a_device(helper):
         fn(*args)
     out = fn(*args, "cpu")
     assert out.device.type == "cpu" and out.dtype == torch.float64
+
+
+def test_time_evolution_stays_on_the_states_device():
+    """timestep, TDVP2 and time_evolve keep a CPU state on the CPU; the
+    host evolution MPO follows the state, in the promoted dtype."""
+    from mpskit_tpu_torch import (
+        TDVP2, WII, make_time_mpo, time_evolve, timestep,
+    )
+    from mpskit_tpu_torch.operators.apply import apply_densempo_finite
+
+    H = transverse_field_ising_lattice(g=0.5)
+    psi = FiniteMPS.random(L, d, D, torch.complex64, "cpu",
+                           torch.Generator().manual_seed(0))
+    for alg in (None, TDVP2()):
+        out, _ = timestep(psi, H, 0.0, 0.05, alg)
+        assert out.AC.device.type == "cpu" and out.AC.dtype == torch.complex64
+    out, _ = time_evolve(psi, H, [0.0, 0.05], WII())
+    assert out.AC.device.type == "cpu" and out.AC.dtype == torch.complex128
+    U = make_time_mpo(H, 0.05, WII())
+    assert isinstance(U.site(0), np.ndarray)
+    assert apply_densempo_finite(U, psi).ARs.device.type == "cpu"
