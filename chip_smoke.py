@@ -19,6 +19,11 @@ Phases, in order; any failure exits non-zero:
   5. the slice at full width: find_groundstate with DMRG(krylovdim=10,
      eig_maxrestarts=2, cheap_galerkin=True) on TFIM L=32 D=512 float32,
      against the closed-form energy, with K1's launch count from this run;
+     then dmrg_sweep_time_tfim_L32_D512_float32 under bench.py:158-183's
+     protocol (a seeded random state, one warm sweep, 6 timed sweeps) in
+     a JSON line with host syncs per sweep, one more sweep plainly, split
+     by synchronizations into eigensolves (K1 inside them), QR,
+     environment pushes and the rest, and under torch.profiler;
   6. f64 VUMPS: find_groundstate with VUMPS(tol=1e-9, maxiter=150) on the
      infinite TFIM (g=1.5) at D=12 in float64, against the exact energy
      density (an integral over the free-fermion dispersion);
@@ -79,7 +84,36 @@ Phases, in order; any failure exits non-zero:
      within 1e-4 of the JAX value, each complex64 energy within 1e-5 of a
      complex128 run of the same steps, the complex128 drift 1e-10, the
      complex64 norm within 1e-5 of 1, finite tensors of the right shapes,
-     zero K1 launches in the steps.
+     zero K1 launches in the steps;
+ 13. GradientGrassmann and the excitations in float64 / complex128: the
+     default find_groundstate(InfiniteMPS, H) (VUMPS at 1e-9, then
+     GradientGrassmann at 1e-10) on TFIM g=1.5 D=12 within 1e-10 of the
+     JAX energy density, with its iterations, evaluations, eps and time;
+     finite GradientGrassmann on TFIM g=4 L=10 D=6 (150 iterations)
+     under the quality gate's variance 1e-2; excitations_finite on TFIM
+     g=10 L=16 D=32 within 1e-2 relative of 2(g-1); FiniteExcited at L=8
+     against ED to 1e-6; excitations_infinite at p = 0, pi within 5e-3 of
+     2(g-1), 2(g+1); the complex128 dispersion at p = 0, 0.7, pi
+     (excitations_infinite_batched) within 5e-3 of the exact one; the
+     left -> right -> left QP gauge round trip to 1e-10; zero K1
+     launches;
+ 14. the excitations slice at full width, the Haldane gap (BASELINE.md
+     row 1, tests/test_haldane.py): spin-1 Heisenberg D=48 float64,
+     find_groundstate with VUMPS(tol=1e-9, maxiter=200) &
+     GradientGrassmann(tol=1e-10, maxiter=20) (VUMPS iterations and eps,
+     GradientGrassmann iterations, evaluations, gradient norms and
+     s/iteration, timed from the first accepted CG step to the last, as
+     grassmann_iteration_time_s1_D48_float64 in a JSON line), then
+     excitations with QuasiparticleAnsatz(tol=1e-6) at p = pi
+     (seconds as haldane_qp_solve_time_s1_D48_float64, matvecs,
+     restarts, GMRES Arnoldi steps and host syncs per matvec), one QP
+     matvec plainly and under torch.profiler (busy time, idle share, the
+     five largest device operations); gates: E/4 within 1e-4 of
+     0.41047925, the energy after GradientGrassmann no more than 1e-12
+     above VUMPS's and no more than 1e-10 below it (VUMPS converged to eps
+     1e-9), at least 2 accepted CG steps, finite tensors, zero K1
+     launches.
+Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
 """
@@ -127,6 +161,15 @@ E_TOL_TDVP_EXACT = 1e-10  # 1 - |overlap| with expm(-i H t), complex128
 E_TOL_TDVP_INF = 1e-8    # absolute, card against CPU, complex128
 E_TOL_TDVP_DRIFT = 1e-10  # relative, complex128 one-site TDVP energy
 C64_MATVEC_TOL = 1e-5    # relative; complex64 rounding, TF32 would be 1e-3
+# phase 13: TFIM g=1.5 at D=12; the JAX package's default
+# find_groundstate (VUMPS at 1e-9, GradientGrassmann at 1e-10) reached
+# this energy density in float64 on the CPU from InfiniteMPS.random(
+# PRNGKey(3), 1, 2, 12)
+QP_G, QP_D = 1.5, 12
+E_GG_JAX = -1.6719262215361526
+E_TOL_GG = 1e-10
+# phase 14: the Haldane gap (BASELINE.md row 1, tests/test_haldane.py)
+HALDANE_D, HALDANE_GAP, HALDANE_TOL = 48, 0.41047925, 1e-4
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -340,7 +383,7 @@ def phase_f64():
     H = transverse_field_ising_lattice(g=g)
     t0 = time.perf_counter()
     psi, envs, eps = find_groundstate(psi, H)
-    E = float(expectation_value(psi, H, envs))
+    E = float(expectation_value(psi, H, envs=envs))
     e0 = tfim_open_chain_e0(L, g)
     log(f"[f64] TFIM L={L} D=32 g={g}: E={E:.15f} E0={e0:.15f} "
         f"|dE|={abs(E - e0):.3e} (tol {E_TOL_F64}), eps={eps:.2e}, "
@@ -378,7 +421,7 @@ def phase_slice():
     psi, envs, eps = find_groundstate(psi, H, alg)
     torch.cuda.synchronize()
     launches = k1.launches
-    E = float(expectation_value(psi, H, envs))
+    E = float(expectation_value(psi, H, envs=envs))
     E_fresh = float(expectation_value(psi, H))
     e0 = tfim_open_chain_e0(L, g)
     for k in range(1, len(marks)):
@@ -398,7 +441,91 @@ def phase_slice():
         raise RuntimeError("the returned environments disagree with fresh ones")
     if launches <= 0:
         raise RuntimeError("the main path never launched K1")
+    _bench_dmrg_sweeps(H, L, d, D)
     return launches
+
+
+def _bench_dmrg_sweeps(H, L, d, D):
+    """dmrg_sweep_time_tfim_L32_D512_float32 under bench.py:158-183's
+    protocol: from a seeded random state with fresh right environments,
+    one warm sweep, then 6 timed sweeps of `_dmrg_sweep_impl` (inner tol
+    1e-6, krylovdim 10, 2 restarts, support masks, cheap_galerkin), with
+    their host syncs; then one more sweep plainly, one split by
+    synchronizations into eigensolves (K1 inside them), QR, environment
+    pushes and the rest, and one under torch.profiler."""
+    import torch
+    from mpskit_tpu_torch import FiniteMPS
+    from mpskit_tpu_torch.algorithms import dmrg
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.environments.finite import (
+        compute_right_envs, right_boundary, stack_W,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.states.finitemps import support_mask
+    from mpskit_tpu_torch.utils import sync
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    psi = FiniteMPS.random(L, d, D, torch.float32, "cuda", gen)
+    Ws = stack_W(H, L, torch.float32, "cuda")
+    masks = torch.as_tensor(support_mask(L, d, D), device="cuda")
+    w = Ws.shape[1]
+
+    def sweep(state):
+        ALs, ARs, AC, GRs = state
+        out = dmrg._dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, 1e-6, 10, 2,
+                                    masks=masks, cheap_galerkin=True)
+        return out[:4], out[4]
+
+    with matmul_precision():
+        state = (psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone(),
+                 compute_right_envs(psi.ARs, Ws, right_boundary(
+                     w, D, torch.float32, "cuda")))
+        launches = k1.launches
+        state, lam0 = sweep(state)
+        torch.cuda.synchronize()
+        warm_launches = k1.launches - launches
+        n, c0 = 6, sync.count
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, lam = sweep(state)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / n
+        syncs = (sync.count - c0) / n
+        launches = k1.launches - launches - warm_launches
+        if not (np.isfinite(lam0) and np.isfinite(lam)):
+            raise RuntimeError("a benchmark sweep gave a non-finite energy")
+        log(json.dumps({"metric": f"dmrg_sweep_time_tfim_L{L}_D{D}_float32",
+                        "value": dt, "unit": "s",
+                        "host_syncs_per_sweep": syncs}))
+
+        def again():
+            return sweep(tuple(t.clone() for t in state))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again()
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        total, parts = _split_by_sync(again, dmrg, {
+            "_solve_site": "eigensolves", "ac_apply_fast": "K1",
+            "leftorth_hybrid": "QR", "rightorth_hybrid": "QR",
+            "transfer_left_mpo": "environment pushes",
+            "transfer_right_mpo": "environment pushes"}, inner=("K1",))
+        log(f"[slice] bench.py protocol: warm sweep, then {n} sweeps "
+            f"{dt:.4f} s/sweep, {syncs:.1f} host syncs/sweep, energy "
+            f"{lam0:.8f} -> {lam:.8f}, K1 launches {warm_launches} in the "
+            f"warm sweep and {launches} in the timed ones (K1 is absent from "
+            f"the split when the sweep makes none); one more sweep "
+            f"{plain:.1f} ms; split "
+            f"({total:.1f} ms): " + "; ".join(
+                f"{k} {t:.1f} ms ({t / total:.1%}, {c} syncs)"
+                for k, (t, c) in parts.items()))
+        busy, n_dev, _ = _device_busy_ms(again)
+    log("[slice] the same sweep under torch.profiler: " + (
+        f"{n_dev} kernels and copies on the device, busy {busy:.1f} ms of "
+        f"the plain sweep's {plain:.1f} ms, idle share "
+        f"{1 - busy / plain:.1%}" if busy else
+        "no device time in the trace: idle share not measured"))
 
 
 def phase_vumps_f64():
@@ -416,7 +543,7 @@ def phase_vumps_f64():
     launches = k1.launches
     t0 = time.perf_counter()
     psi, envs, eps = find_groundstate(psi, H, VUMPS(tol=1e-9, maxiter=150))
-    e = float(expectation_value(psi, H, envs)[0])
+    e = float(expectation_value(psi, H, envs=envs)[0])
     e_env = float(envs.e_density)
     e0 = tfim_density(g)
     log(f"[vumps-f64] TFIM g={g} D={D}: e={e:.15f} (envs {e_env:.15f}) "
@@ -614,7 +741,7 @@ def phase_dmrg2_f64():
         t0 = time.perf_counter()
         psi, envs, eps = find_groundstate(
             psi, H, DMRG2(maxiter=50, trscheme=scheme, verbosity=0))
-        E = float(expectation_value(psi, H, envs))
+        E = float(expectation_value(psi, H, envs=envs))
         log(f"[dmrg2-f64] {name}: E={E:.15f} E0={e0:.15f} |dE|="
             f"{abs(E - e0):.3e} (tol {E_TOL_F64}), eps={eps:.2e}, "
             f"{time.perf_counter() - t0:.1f} s")
@@ -635,17 +762,20 @@ class _patched:
         for name, value in self.attrs.items():
             self.saved[name] = getattr(self.module, name)
             setattr(self.module, name, value)
+        return self
 
     def __exit__(self, *exc):
         for name, value in self.saved.items():
             setattr(self.module, name, value)
 
 
-def _split_by_sync(run, module, part_of):
+def _split_by_sync(run, module, part_of, inner=()):
     """Run `run()` once with a synchronization around every call of the
     attributes of `module` named in `part_of` ({attribute: part, or a
     function of the call's arguments that names the part}); returns
-    (total ms, {part: [ms, host syncs]}) with the rest as "other"."""
+    (total ms, {part: [ms, host syncs]}) with the rest as "other". The
+    parts named in `inner` run inside other parts: they are reported and
+    left out of the sum that "other" is the rest of."""
     import torch
     from mpskit_tpu_torch.utils import sync
 
@@ -673,8 +803,9 @@ def _split_by_sync(run, module, part_of):
         run()
     torch.cuda.synchronize()
     total = (time.perf_counter() - t0) * 1e3
-    parts["other"] = [total - sum(v[0] for v in parts.values()),
-                      sync.count - c0 - sum(v[1] for v in parts.values())]
+    outer = [v for k, v in parts.items() if k not in inner]
+    parts["other"] = [total - sum(v[0] for v in outer),
+                      sync.count - c0 - sum(v[1] for v in outer)]
     return total, parts
 
 
@@ -831,7 +962,7 @@ def phase_dmrg2_slice():
         _log_svd_times()
     launches = k1.launches
 
-    E = float(expectation_value(psi, H, envs))
+    E = float(expectation_value(psi, H, envs=envs))
     E_fresh = float(expectation_value(psi, H))
     # the trscheme chain of find_groundstate: one-site DMRG from the DMRG2
     # state, here in float64
@@ -839,7 +970,7 @@ def phase_dmrg2_slice():
     t0 = time.perf_counter()
     psi64, envs64, eps64 = find_groundstate(
         psi64, H, DMRG(tol=1e-9, maxiter=12, verbosity=0))
-    E64 = float(expectation_value(psi64, H, envs64))
+    E64 = float(expectation_value(psi64, H, envs=envs64))
     rel = abs(E - E64) / abs(E64)
     log(f"[dmrg2] spin-1 Heisenberg L={L} D={D} float32: E={E:.8f} (fresh "
         f"envs {E_fresh:.8f}); float64 one-site continuation E={E64:.10f} "
@@ -883,7 +1014,7 @@ def phase_bonds(psi_vumps, psi_dmrg):
         psi = InfiniteMPS.random(period, 2, D, torch.float64, "cuda", gen)
         t0 = time.perf_counter()
         psi, envs, err = find_groundstate(psi, H, alg)
-        e = expectation_value(psi, H, envs).cpu().numpy()
+        e = expectation_value(psi, H, envs=envs).cpu().numpy()
         de = float(np.abs(e - e0).max())
         log(f"[bonds] {name} TFIM g={g} D={D} cell {period}: e={e} "
             f"|de|={de:.3e} (tol {E_TOL_IDMRG}), err={err:.2e}, "
@@ -1074,7 +1205,7 @@ def phase_tdvp_slice():
     t0 = time.perf_counter()
     psi, envs, eps = find_groundstate(psi, H0, DMRG(tol=1e-8, maxiter=12,
                                                     verbosity=0))
-    E_gs = float(expectation_value(psi, H0, envs))
+    E_gs = float(expectation_value(psi, H0, envs=envs))
     e0 = tfim_open_chain_e0(L, TDVP_G0)
     rel_gs = abs(E_gs - e0) / abs(e0)
     log(f"[tdvp] ground state TFIM g={TDVP_G0} L={L} D={D} float32: "
@@ -1190,29 +1321,375 @@ def phase_tdvp_slice():
     return launches
 
 
+def _tfim_gs_f64(g, D, gen, alg):
+    """A float64 infinite TFIM state on the card from `gen`, through
+    find_groundstate with `alg` (None: the default chain); returns
+    (H, psi, envs, eps, seconds)."""
+    import torch
+    from mpskit_tpu_torch import (
+        InfiniteMPS, find_groundstate, transverse_field_ising_lattice,
+    )
+
+    H = transverse_field_ising_lattice(g=g)
+    psi = InfiniteMPS.random(1, 2, D, torch.float64, "cuda", gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psi, envs, eps = find_groundstate(psi, H, alg, verbosity=0)
+    torch.cuda.synchronize()
+    return H, psi, envs, eps, time.perf_counter() - t0
+
+
+class _grassmann_observed(_patched):
+    """Observe a GradientGrassmann run from outside: `evaluations` counts
+    the energy-and-gradient evaluations (the set-up one and the line
+    searches'), `gnorm0` is the norm of the first gradient, `steps` holds
+    the time of each accepted CG step's end (each calls `_cg_beta` once,
+    just before the step's host read, so the synchronization here costs
+    the step nothing)."""
+
+    def __init__(self, finite=False):
+        import torch
+        from mpskit_tpu_torch.algorithms import grassmann
+
+        name = ("_energy_and_gradient_finite" if finite
+                else "_energy_and_gradient")
+        evaluate, beta = getattr(grassmann, name), grassmann._cg_beta
+        self.evaluations, self.first, self.steps = 0, None, []
+
+        def evaluated(*args, **kwargs):
+            out = evaluate(*args, **kwargs)
+            self.evaluations += 1
+            if self.first is None:
+                self.first = out[1]
+            return out
+
+        def stepped(*args):
+            out = beta(*args)
+            torch.cuda.synchronize()
+            self.steps.append(time.perf_counter())
+            return out
+
+        super().__init__(grassmann, **{name: evaluated, "_cg_beta": stepped})
+
+    @property
+    def gnorm0(self):
+        import torch
+
+        return float(torch.linalg.vector_norm(self.first))
+
+    def seconds_per_step(self):
+        """Mean time of the accepted steps after the first (their line
+        searches and CG updates, without the set-up evaluation and the
+        final environment solve)."""
+        n = len(self.steps)
+        return (self.steps[-1] - self.steps[0]) / (n - 1) if n > 1 else None
+
+
+def phase_qp_f64():
+    """Phase 13: GradientGrassmann, the quasiparticle solves, their gauges
+    and FiniteExcited in float64 / complex128 on the card, each against
+    an exact or JAX value."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, FiniteExcited, FiniteMPS, GradientGrassmann, InfiniteMPS,
+        QuasiparticleAnsatz, excitations, find_groundstate,
+        left_to_right_gauge, right_to_left_gauge,
+        transverse_field_ising, transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.algorithms.excitations import (
+        excitations_infinite_batched,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.states.quasiparticle import LeftGaugedQP
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    launches = k1.launches
+
+    # the default infinite find_groundstate: VUMPS at 1e-9, then the
+    # GradientGrassmann refinement at the default tol 1e-10
+    g = QP_G
+    with _grassmann_observed() as gg:
+        H, psi, envs, eps, dt = _tfim_gs_f64(g, QP_D, gen, None)
+    e = float(envs.e_density)
+    log(f"[qp-f64] default find_groundstate(InfiniteMPS, H), TFIM g={g} "
+        f"D={QP_D}: e={e:.16f} against JAX {E_GG_JAX} |de|="
+        f"{abs(e - E_GG_JAX):.3e} (tol {E_TOL_GG}); GradientGrassmann "
+        f"{len(gg.steps)} iterations, {gg.evaluations} evaluations, "
+        f"gradient norm {gg.gnorm0:.3e} -> eps {eps:.3e}; {dt:.1f} s")
+    if not abs(e - E_GG_JAX) <= E_TOL_GG:
+        raise RuntimeError("the default infinite find_groundstate misses "
+                           "the JAX energy density")
+
+    # the reference quality gate on a finite chain
+    Hg = transverse_field_ising(g=4.0)
+    L = 10
+    fpsi = FiniteMPS.random(L, 2, 6, torch.complex128, "cuda", gen)
+    t0 = time.perf_counter()
+    with _grassmann_observed(finite=True) as fgg:
+        fpsi, _, feps = find_groundstate(fpsi, Hg, GradientGrassmann(
+            tol=1e-6, maxiter=150, verbosity=0))
+    v = _mps_vector(fpsi)
+    Hm = Hg.to_matrix(L)
+    var = float(np.linalg.norm(Hm @ v) ** 2 - np.vdot(v, Hm @ v).real ** 2)
+    log(f"[qp-f64] finite GradientGrassmann TFIM g=4 L={L} D=6: variance "
+        f"{var:.3e} (tol 1e-2), eps {feps:.3e}, "
+        f"{len(fgg.steps)} iterations, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not abs(var) < 1e-2:
+        raise RuntimeError("finite GradientGrassmann misses the quality gate")
+
+    # the finite QP gap at g=10 (BASELINE.md row 2)
+    gq, Lq, Dq = 10.0, 16, 32
+    Hq = transverse_field_ising_lattice(g=gq)
+    qpsi = FiniteMPS.random(Lq, 2, Dq, torch.float64, "cuda", gen)
+    t0 = time.perf_counter()
+    qpsi, _, _ = find_groundstate(qpsi, Hq, DMRG(tol=1e-9, maxiter=40,
+                                                 verbosity=0))
+    es, _ = excitations(Hq, QuasiparticleAnsatz(tol=1e-6), qpsi, num=1)
+    rel = abs(float(es[0]) - 2 * (gq - 1)) / (2 * (gq - 1))
+    log(f"[qp-f64] excitations_finite TFIM g={gq} L={Lq} D={Dq}: gap "
+        f"{float(es[0]):.10f} against 2(g-1) = {2 * (gq - 1)}, rel "
+        f"{rel:.3e} (tol 1e-2), {time.perf_counter() - t0:.1f} s")
+    if not rel < 1e-2:
+        raise RuntimeError("the finite QP gap misses 2(g-1)")
+
+    # FiniteExcited against ED
+    Le = 8
+    He = transverse_field_ising_lattice(g=1.5)
+    epsi = FiniteMPS.random(Le, 2, 16, torch.float64, "cuda", gen)
+    epsi, _, _ = find_groundstate(epsi, He, DMRG(tol=1e-12, maxiter=50,
+                                                 verbosity=0))
+    t0 = time.perf_counter()
+    ees, _ = excitations(He, FiniteExcited(tol=1e-10, maxiter=40), epsi,
+                         num=1, generator=gen)
+    e1 = float(np.linalg.eigvalsh(He.to_matrix(Le))[1])
+    log(f"[qp-f64] FiniteExcited TFIM g=1.5 L={Le}: E1={float(ees[0]):.12f} "
+        f"ED {e1:.12f} |dE|={abs(float(ees[0]) - e1):.3e} (tol 1e-6), "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not abs(float(ees[0]) - e1) <= 1e-6:
+        raise RuntimeError("FiniteExcited misses the ED energy")
+
+    # the infinite QP at p = 0 and pi from the refined state
+    t0 = time.perf_counter()
+    ies, _ = excitations(H, QuasiparticleAnsatz(tol=1e-7), [0.0, np.pi],
+                         psi, envs=envs)
+    ies = ies[:, 0].numpy()
+    exact = np.array([2 * (g - 1), 2 * (g + 1)])
+    log(f"[qp-f64] excitations_infinite TFIM g={g} D={QP_D}: p=0 "
+        f"{ies[0]:.10f}, p=pi {ies[1]:.10f} against {exact.tolist()}, max "
+        f"|dE| {np.abs(ies - exact).max():.3e} (tol 5e-3), "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not np.abs(ies - exact).max() < 5e-3:
+        raise RuntimeError("the infinite QP misses the TFIM dispersion")
+
+    # the dispersion in complex128 against the exact one
+    cpsi = InfiniteMPS(*(x.to(torch.complex128) for x in (
+        psi.AL, psi.AR, psi.AC, psi.C)))
+    momenta = np.array([0.0, 0.7, np.pi])
+    t0 = time.perf_counter()
+    disp = excitations_infinite_batched(H, QuasiparticleAnsatz(tol=1e-10),
+                                        momenta, cpsi).numpy()
+    exact = 2 * np.sqrt(1 + g * g - 2 * g * np.cos(momenta))
+    dd = float(np.abs(disp - exact).max())
+    log(f"[qp-f64] complex128 dispersion at p = {momenta.tolist()}: "
+        f"{disp.real} against {exact}, max |dE| {dd:.3e} (tol 5e-3), "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not dd < 5e-3:
+        raise RuntimeError("the complex128 dispersion misses the exact one")
+
+    # the gauge round trip
+    qp = LeftGaugedQP.random(cpsi, momentum=0.7, generator=gen)
+    back = right_to_left_gauge(left_to_right_gauge(qp))
+    db = float((back.bs() - qp.bs()).abs().max())
+    log(f"[qp-f64] left -> right -> left gauge at p=0.7: max |dB| {db:.3e} "
+        f"(tol 1e-10); K1 launches in this phase: {k1.launches - launches}")
+    if not db <= 1e-10:
+        raise RuntimeError("the QP gauge round trip changes B")
+    if k1.launches != launches:
+        raise RuntimeError("the float64 QP paths launched K1")
+    return k1.launches - launches
+
+
+def phase_haldane():
+    """Phase 14: the spin-1 Haldane gap at D=48 through find_groundstate
+    (VUMPS then GradientGrassmann) and excitations at p = pi."""
+    import importlib
+
+    import torch
+    from mpskit_tpu_torch import (
+        VUMPS, GradientGrassmann, InfiniteMPS, QuasiparticleAnsatz,
+        excitations, find_groundstate, heisenberg_XXX,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.linalg import gmres
+    from mpskit_tpu_torch.utils import sync
+
+    fgs = importlib.import_module(
+        "mpskit_tpu_torch.algorithms.find_groundstate")
+    texc = importlib.import_module("mpskit_tpu_torch.algorithms.excitations")
+    D = HALDANE_D
+    H = heisenberg_XXX(spin=1)
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    psi = InfiniteMPS.random(1, 3, D, torch.float64, "cuda", gen)
+    k1.launches = 0
+
+    # the chain's VUMPS stage is observed: its iterations (finalize hook),
+    # its eps and energy (a recording wrapper in the dispatch table)
+    stages = {}
+
+    def vumps_recorded(psi, H, alg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fgs.find_groundstate_vumps(psi, H, alg)
+        torch.cuda.synchronize()
+        stages["vumps"] = (out[2], float(out[1].e_density),
+                           time.perf_counter() - t0)
+        return out
+
+    iters = []
+    table = tuple((cls, vumps_recorded if cls is VUMPS else run)
+                  for cls, run in fgs._INFINITE)
+    chain = (VUMPS(tol=1e-9, maxiter=200, verbosity=0,
+                   finalize=lambda it, psi, H: iters.append(it))
+             & GradientGrassmann(tol=1e-10, maxiter=20, verbosity=0))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _patched(fgs, _INFINITE=table), _grassmann_observed() as gg:
+        psi, envs, gnorm = find_groundstate(psi, H, chain)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    eps_v, e_v, t_v = stages["vumps"]
+    e_g = float(envs.e_density)
+    n_it = len(gg.steps)
+    s_it = gg.seconds_per_step()
+    if s_it is None:
+        raise RuntimeError("GradientGrassmann took fewer than 2 CG steps")
+    log(f"[haldane] spin-1 Heisenberg D={D} float64: VUMPS {len(iters)} "
+        f"iterations, eps {eps_v:.3e}, e={e_v:.15f}, {t_v:.1f} s; "
+        f"GradientGrassmann {n_it} iterations, {gg.evaluations} "
+        f"energy-and-gradient evaluations (the set-up one and the line "
+        f"searches'), gradient norm {gg.gnorm0:.3e} -> {gnorm:.3e}, "
+        f"e={e_g:.15f} (de {e_g - e_v:.3e}), {t_all - t_v:.1f} s in all, "
+        f"{s_it:.4f} s/iteration over iterations 2-{n_it}")
+    log(json.dumps({"metric": f"grassmann_iteration_time_s1_D{D}_float64",
+                    "value": s_it, "unit": "s", "iterations": n_it,
+                    "evaluations": gg.evaluations}))
+
+    # the QP solve at p = pi, its matvecs, restarts, Arnoldi steps, syncs
+    counts = {"matvecs": 0, "arnoldi": 0, "restarts": 0}
+
+    def matvec_counted(*args, **kwargs):
+        counts["matvecs"] += 1
+        return mv(*args, **kwargs)
+
+    def cycle_counted(*args, **kwargs):
+        out = cycle(*args, **kwargs)
+        counts["arnoldi"] += out[2]
+        return out
+
+    def eigsolve_counted(*args, **kwargs):
+        res = eigsolve(*args, **kwargs)
+        counts["restarts"] += res.iterations
+        return res
+
+    mv, cycle = texc._qp_matvec_infinite, gmres._gmres_cycle_adaptive
+    eigsolve = texc._qp_eigsolve
+    torch.cuda.synchronize()
+    c0 = sync.count
+    t0 = time.perf_counter()
+    with _patched(texc, _qp_matvec_infinite=matvec_counted,
+                  _qp_eigsolve=eigsolve_counted), \
+            _patched(gmres, _gmres_cycle_adaptive=cycle_counted):
+        es, qps = excitations(H, QuasiparticleAnsatz(tol=1e-6), np.pi, psi,
+                              envs=envs, num=1)
+    torch.cuda.synchronize()
+    t_qp = time.perf_counter() - t0
+    syncs = sync.count - c0
+    gap = float(es[0, 0]) / 4
+    n_mv = max(counts["matvecs"], 1)
+    log(f"[haldane] QP solve at p=pi: {t_qp:.2f} s, {counts['matvecs']} "
+        f"matvecs in {counts['restarts']} restarts, {counts['arnoldi']} "
+        f"GMRES Arnoldi steps ({counts['arnoldi'] / n_mv:.1f} per matvec), "
+        f"{syncs} host syncs ({syncs / n_mv:.1f} per matvec), "
+        f"{t_qp / n_mv * 1e3:.1f} ms per matvec")
+    log(json.dumps({"metric": f"haldane_qp_solve_time_s1_D{D}_float64",
+                    "value": t_qp, "unit": "s",
+                    "matvecs": counts["matvecs"],
+                    "host_syncs_per_matvec": syncs / n_mv}))
+
+    # one QP matvec plainly and under the profiler
+    qp = qps[0][0]
+    Es = texc._renorm_energies_infinite(psi, H, envs)
+
+    def one():
+        return mv(qp.Xs, qp, H, envs.GLs, envs.GRs, Es, 1e-10)
+
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    one()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    busy, n_dev, by_name = _device_busy_ms(one)
+    log(f"[haldane] one QP matvec: {plain:.1f} ms, {sync.count - c0} host "
+        "syncs; under torch.profiler: " + (
+            f"{n_dev} kernels and copies, busy {busy:.2f} ms, idle share "
+            f"{1 - busy / plain:.1%}" if busy else
+            "no device time in the trace: idle share not measured"))
+    for name, (ms, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:5]:
+        log(f"[haldane] device op {ms:.3f} ms in {count} calls: {name[:110]}")
+
+    launches = k1.launches
+    log(f"[haldane] gap E/4 = {gap:.10f} against {HALDANE_GAP} |d| "
+        f"{abs(gap - HALDANE_GAP):.3e} (tol {HALDANE_TOL}); energy after "
+        f"GradientGrassmann minus VUMPS's {e_g - e_v:.3e} (within -1e-10 "
+        f"and 1e-12); K1 launches in this phase: {launches}")
+    for name in ("AL", "AR", "AC", "C"):
+        t = getattr(psi, name)
+        if not torch.isfinite(t).all() or t.shape[1] != D:
+            raise RuntimeError(f"the Haldane state's {name} is not finite or "
+                               f"has the wrong width")
+    if not abs(gap - HALDANE_GAP) < HALDANE_TOL:
+        raise RuntimeError("the Haldane gap misses 0.41047925")
+    if not -1e-10 <= e_g - e_v <= 1e-12:
+        raise RuntimeError("GradientGrassmann moved the energy density "
+                           "away from the converged VUMPS one")
+    if launches != 0:
+        raise RuntimeError("the Haldane path launched K1")
+    return launches
+
+
 def main():
     sys.path.insert(0, str(REPO))
     phase_device()
     import torch
 
-    phase_build()
-    k1 = phase_k1()
-    psi_dmrg = phase_f64()
-    launches = phase_slice()
-    psi_vumps = phase_vumps_f64()
-    phase_vumps_slice()
-    phase_dmrg2_f64()
-    phase_dmrg2_slice()
-    phase_bonds(psi_vumps, psi_dmrg)
-    phase_tdvp_f64()
-    launches_tdvp = phase_tdvp_slice()
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed(phase_build)
+    k1 = timed(phase_k1)
+    psi_dmrg = timed(phase_f64)
+    launches = timed(phase_slice)
+    psi_vumps = timed(phase_vumps_f64)
+    timed(phase_vumps_slice)
+    timed(phase_dmrg2_f64)
+    timed(phase_dmrg2_slice)
+    timed(phase_bonds, psi_vumps, psi_dmrg)
+    timed(phase_tdvp_f64)
+    launches_tdvp = timed(phase_tdvp_slice)
+    launches_qp = timed(phase_qp_f64) + timed(phase_haldane)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
-        "exact_ms": k1["exact_ms"], "launches_tdvp": launches_tdvp}]}))
+        "exact_ms": k1["exact_ms"], "launches_tdvp": launches_tdvp,
+        "launches_qp": launches_qp}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -14,14 +14,21 @@ RandExpand, OptimalExpand and VUMPSSvdCut, and the entanglement spectrum
 and entropy. Slice 6 adds time evolution in native complex64/complex128:
 the Krylov exponentials, one-site TDVP on finite and infinite states,
 TDVP2, the WI/WII/TaylorCluster evolution MPOs as DenseMPOs, their
-application to finite states and time_evolve. The package imports torch
-and never jax; the JAX package stays the reference the tests hold it to."""
+application to finite states and time_evolve. Slice 7 adds
+GradientGrassmann (finite and infinite, and the default refinement of an
+infinite find_groundstate), the quasiparticle states, their environments
+and gauge conversions, the QuasiparticleAnsatz excitations (finite,
+infinite and the momentum dispersion) and FiniteExcited. The package
+imports torch and never jax; the JAX package stays the reference the
+tests hold it to."""
 
 from .algorithms import (
-    DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VUMPS, WI, WII, OptimalExpand,
-    RandExpand, SvdCut, TaylorCluster, VUMPSSvdCut, changebonds,
-    entanglement_spectrum, entropy, expectation_value, find_groundstate,
-    find_groundstate_dmrg, find_groundstate_dmrg2, find_groundstate_idmrg1,
+    DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VUMPS, WI, WII, FiniteExcited,
+    GradientGrassmann, OptimalExpand, QuasiparticleAnsatz, RandExpand,
+    SvdCut, TaylorCluster, VUMPSSvdCut, changebonds, entanglement_spectrum,
+    entropy, excitations, expectation_value, find_groundstate,
+    find_groundstate_dmrg, find_groundstate_dmrg2,
+    find_groundstate_grassmann, find_groundstate_idmrg1,
     find_groundstate_idmrg2, find_groundstate_vumps, make_time_mpo,
     time_evolve, timestep,
 )
@@ -31,6 +38,13 @@ from .models.hamiltonians import (
 from .operators.mpo import DenseMPO, MPOHamiltonian
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
+from .states.qp_gauge import (
+    finite_left_to_right_gauge, finite_right_to_left_gauge,
+    left_to_right_gauge, right_to_left_gauge,
+)
+from .states.quasiparticle import (
+    FiniteQP, FiniteQPRight, LeftGaugedQP, RightGaugedQP, qp_to_finitemps,
+)
 from .tensors.ops import (
     TruncationScheme, leftnull, leftorth, lq_pos, notrunc, qr_pos, rightnull,
     rightorth, svd_truncated, truncbelow, truncdim, truncerr,

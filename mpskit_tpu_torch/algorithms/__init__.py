@@ -1,15 +1,25 @@
 """Algorithms of the PyTorch port: finite one- and two-site DMRG, VUMPS,
-IDMRG, bond-dimension management, the expectation values, the
-entanglement toolbox, the find_groundstate dispatcher, and time evolution
-(TDVP, TDVP2, the evolution MPOs and time_evolve)."""
+IDMRG, GradientGrassmann, bond-dimension management, the expectation
+values, the entanglement toolbox, the find_groundstate dispatcher, time
+evolution (TDVP, TDVP2, the evolution MPOs and time_evolve), and the
+excitations (QuasiparticleAnsatz and FiniteExcited)."""
 
 from .changebonds import (
     OptimalExpand, RandExpand, SvdCut, VUMPSSvdCut, changebonds,
 )
 from .dmrg import DMRG, find_groundstate_dmrg
 from .dmrg2 import DMRG2, find_groundstate_dmrg2
+from .dmrgexcitation import FiniteExcited, excitations_dmrg
+from .excitations import (
+    QuasiparticleAnsatz, excitations, excitations_finite,
+    excitations_infinite, excitations_infinite_batched,
+)
 from .expval import expectation_value
 from .find_groundstate import find_groundstate
+from .grassmann import (
+    GradientGrassmann, find_groundstate_grassmann,
+    find_groundstate_grassmann_finite,
+)
 from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
     find_groundstate_idmrg2
 from .tdvp import TDVP, TDVP2, timestep

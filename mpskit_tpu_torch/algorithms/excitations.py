@@ -1,0 +1,280 @@
+"""Quasiparticle excitations (counterpart of
+mpskit_tpu/algorithms/excitations.py: the infinite and finite
+QuasiparticleAnsatz, the momentum-batched dispersion and the
+`excitations` dispatcher).
+
+The QP effective Hamiltonian per site is three ac_apply-shaped
+contractions: B in the center against (GL, GR), B to the left against
+(lB, GR) with the ground AR as ket, and B to the right against (GL, rB)
+with the ground AL as ket, projected back onto the null-space basis.
+Every Krylov matvec rebuilds the momentum-phased B-environments, so an
+infinite matvec runs one cyclic GMRES solve per non-zero diagonal level
+of the MPO on each side, each with one host read per Arnoldi step. The
+deflation overlaps of `_solve_qp` stay on the device.
+
+The JAX package vmaps the dispersion over momenta; here
+`excitations_infinite_batched` is `excitations_infinite`'s host loop over
+the momenta, every solve from the same seeded start vector unless a
+generator is given. The charge-sector (`sector=`), symmetric-state and
+reduced-MPO branches, and the transfer-MPO branch, come with later slices
+and raise NotImplementedError naming their queue-1 item (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import Defaults, matmul_precision
+from ..environments.finite import (
+    compute_left_envs, compute_right_envs, left_boundary, right_boundary,
+    stack_W,
+)
+from ..environments.infinite_ham import hamiltonian_environments
+from ..environments.qp import (
+    qp_left_envs, qp_left_envs_finite, qp_right_envs, qp_right_envs_finite,
+)
+from ..linalg.arnoldi import smallest_eigs_arnoldi
+from ..linalg.lanczos import eigsh_smallest
+from ..operators.mpo import DenseMPO, MPOHamiltonian
+from ..states.finitemps import FiniteMPS
+from ..states.infinitemps import InfiniteMPS
+from ..states.quasiparticle import FiniteQP, LeftGaugedQP
+from ..utils.sync import to_host
+from .derivatives import ac_apply
+
+_SECTOR = ("charge-sector excitations (sector=) come with queue-1 item 11 "
+           "(ROADMAP.md)")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuasiparticleAnsatz:
+    """Same fields and defaults as the JAX package's. solver: "lanczos"
+    for an (effectively) Hermitian H_eff, "arnoldi" for the
+    smallest-real-part restarted Arnoldi."""
+
+    tol: float = 1e-8
+    krylovdim: int = Defaults.krylovdim
+    maxrestarts: int = 40
+    env_tol: float = 1e-10
+    verbosity: int = Defaults.verbosity
+    solver: str = "lanczos"
+
+
+def _qp_eigsolve(mv, x0, alg: QuasiparticleAnsatz):
+    """The QP eigensolve that alg.solver names."""
+    if alg.solver == "arnoldi":
+        return smallest_eigs_arnoldi(mv, x0, alg.krylovdim, alg.maxrestarts,
+                                     alg.tol)
+    return eigsh_smallest(mv, x0, alg.krylovdim, alg.maxrestarts, alg.tol)
+
+
+def _generator(generator, device):
+    """The caller's generator, or a seeded one on `device` so that a run
+    repeats (the JAX package's default PRNGKey(0))."""
+    if generator is not None:
+        return generator
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def _deflated(base_mv, found, shift):
+    """base_mv + shift * sum_k |x_k><x_k| over the found eigenvectors."""
+    def mv(X):
+        y = base_mv(X)
+        for xf in found:
+            y = y + shift * torch.vdot(xf.reshape(-1), X.reshape(-1)) * xf
+        return y
+    return mv
+
+
+def _stack_energies(es):
+    """Host eigenvalues as a CPU tensor, float64 (complex128 from the
+    Arnoldi solver on a complex operator)."""
+    return torch.from_numpy(np.array(es))
+
+
+# ----------------------------------------------------------------------------
+# infinite QP
+# ----------------------------------------------------------------------------
+
+def _qp_matvec_infinite(Xs, qp_template: LeftGaugedQP, H, GLs, GRs, Es,
+                        env_tol):
+    """H_eff - E applied to the stacked X blocks."""
+    qp = dataclasses.replace(qp_template, Xs=Xs)
+    L = qp.period
+    Ws = stack_W(H, L, qp.left_gs.dtype, qp.left_gs.device)
+    Bs = qp.bs()
+    lBs = qp_left_envs(qp, GLs, H, tol=env_tol)
+    rBs = qp_right_envs(qp, GRs, H, tol=env_tol)
+    AL, AR = qp.left_gs.AL, qp.right_gs.AR
+    out = []
+    for i in range(L):
+        y = ac_apply(GLs[i], Ws[i], GRs[i], Bs[i])
+        y = y + ac_apply(lBs[i], Ws[i], GRs[i], AR[i])
+        y = y + ac_apply(GLs[i], Ws[i], rBs[i], AL[i])
+        y = y - Es[i] * Bs[i]
+        out.append(torch.einsum("lpk,lpr->kr", qp.VLs[i].conj(), y))
+    return torch.stack(out)
+
+
+def _renorm_energies_infinite(psi: InfiniteMPS, H, envs):
+    """<AC_i| H_AC |AC_i> / <AC_i|AC_i> per site, an (L,) real tensor."""
+    Ws = stack_W(H, psi.period, psi.dtype, psi.device)
+    es = []
+    for i in range(psi.period):
+        AC = psi.AC[i].reshape(-1)
+        y = ac_apply(envs.GLs[i], Ws[i], envs.GRs[i], psi.AC[i]).reshape(-1)
+        es.append(torch.vdot(AC, y).real / torch.vdot(AC, AC).real)
+    return torch.stack(es)
+
+
+def _solve_qp(qp0, H, GLs, GRs, Es, alg, num):
+    """Sequential deflation: the `num` smallest eigenpairs of H_eff, each
+    found one shifted by 100 above the window."""
+    es, xs = [], []
+
+    def base_mv(X):
+        return _qp_matvec_infinite(X, qp0, H, GLs, GRs, Es, alg.env_tol)
+
+    for _ in range(num):
+        res = _qp_eigsolve(_deflated(base_mv, tuple(xs), 100.0), qp0.Xs, alg)
+        es.append(res.eigenvalue)
+        xs.append(res.eigenvector)
+    return es, xs
+
+
+def excitations_infinite(H, alg: QuasiparticleAnsatz, momenta, psi,
+                         envs=None, num: int = 1, generator=None,
+                         right_gs=None, right_envs=None, sector=None):
+    """QP excitation energies for one or several momenta. Returns
+    (energies, qps): energies a (n_momenta, num) CPU tensor, qps one list
+    of LeftGaugedQP per momentum. `generator` draws the start vectors (on
+    psi's device); without one every momentum starts from the same seeded
+    vector, as the JAX package's one key does."""
+    if sector is not None:
+        raise NotImplementedError(_SECTOR)
+    if not isinstance(psi, InfiniteMPS):
+        raise NotImplementedError(
+            f"excitations on {type(psi).__name__} are not ported yet: "
+            "symmetric states come with queue-1 item 11 (ROADMAP.md)")
+    with matmul_precision():
+        if envs is None:
+            envs = hamiltonian_environments(psi, H)
+        if right_gs is not None and right_envs is None:
+            right_envs = hamiltonian_environments(right_gs, H)
+        if np.isscalar(momenta):
+            momenta = [momenta]
+        GLs = envs.GLs
+        GRs = (envs if right_envs is None else right_envs).GRs
+        Es = _renorm_energies_infinite(psi, H, envs)
+        if right_gs is not None:
+            Es = (Es + _renorm_energies_infinite(right_gs, H, right_envs)) / 2
+        energies, qps = [], []
+        for p in momenta:
+            qp0 = LeftGaugedQP.random(psi, momentum=float(p),
+                                      right_gs=right_gs,
+                                      generator=_generator(generator,
+                                                           psi.device))
+            es, xs = _solve_qp(qp0, H, GLs, GRs, Es, alg, num)
+            energies.append(es)
+            qps.append([dataclasses.replace(qp0, Xs=x) for x in xs])
+    return _stack_energies(energies), qps
+
+
+def excitations_infinite_batched(H, alg: QuasiparticleAnsatz, momenta, psi,
+                                 envs=None, generator=None):
+    """The dispersion over several momenta, the lowest energy at each
+    (the JAX package vmaps these solves; here `excitations_infinite` loops
+    over them). Needs a complex dtype. Returns energies (n_momenta,), a
+    CPU tensor."""
+    assert psi.dtype.is_complex, "momentum batching requires a complex dtype"
+    return excitations_infinite(H, alg, momenta, psi, envs=envs,
+                                generator=generator)[0][:, 0]
+
+
+# ----------------------------------------------------------------------------
+# finite QP
+# ----------------------------------------------------------------------------
+
+def _qp_matvec_finite(Xs, qp_template: FiniteQP, Ws, GLs, GRs, E0):
+    qp = dataclasses.replace(qp_template, Xs=Xs)
+    Bs = qp.bs()
+    lBs = qp_left_envs_finite(qp, GLs, Ws)
+    rBs = qp_right_envs_finite(qp, GRs, Ws)
+    mask = qp.mask.to(Xs.dtype)
+    out = []
+    for i in range(qp.length):
+        y = ac_apply(GLs[i], Ws[i], GRs[i + 1], Bs[i])
+        y = y + ac_apply(lBs[i], Ws[i], GRs[i + 1], qp.ARs[i])
+        y = y + ac_apply(GLs[i], Ws[i], rBs[i], qp.ALs[i])
+        y = y - E0 * Bs[i]
+        out.append(torch.einsum("lpk,lpr->kr", qp.VLs[i].conj(), y) * mask[i])
+    return torch.stack(out)
+
+
+def excitations_finite(H, alg: QuasiparticleAnsatz, psi: FiniteMPS,
+                       envs=None, num: int = 1, generator=None, sector=None):
+    """Finite-chain QP excitations. Returns (energies (num,) CPU tensor,
+    list of FiniteQP). `envs` is accepted for signature parity: the
+    environments are rebuilt in the full gauges, as in the JAX package."""
+    if sector is not None:
+        raise NotImplementedError(_SECTOR)
+    L, D = psi.length, psi.D
+    with matmul_precision():
+        qp0 = FiniteQP.random(
+            psi, generator=_generator(generator, psi.device))
+        Ws = stack_W(H, L, psi.dtype, psi.device)
+        w = Ws.shape[1]
+        GLs = compute_left_envs(qp0.ALs, Ws,
+                                left_boundary(w, D, psi.dtype, psi.device))
+        GRs = compute_right_envs(qp0.ARs, Ws,
+                                 right_boundary(w, D, psi.dtype, psi.device))
+        # the ground energy from the full left environment
+        E0 = GLs[L][w - 1, 0, 0].real
+        shift = 100.0 * max(1.0, abs(to_host(E0)[0]))
+
+        def base_mv(X):
+            return _qp_matvec_finite(X, qp0, Ws, GLs, GRs, E0)
+
+        es, xs = [], []
+        for _ in range(num):
+            res = _qp_eigsolve(_deflated(base_mv, tuple(xs), shift), qp0.Xs,
+                               alg)
+            es.append(res.eigenvalue)
+            xs.append(res.eigenvector)
+    return _stack_energies(es), [dataclasses.replace(qp0, Xs=x) for x in xs]
+
+
+# ----------------------------------------------------------------------------
+# dispatch
+# ----------------------------------------------------------------------------
+
+def excitations(H, alg, *args, **kwargs):
+    """excitations(H, QuasiparticleAnsatz(), momenta, psi_inf, ...),
+    excitations(H, QuasiparticleAnsatz(), psi_finite, ...) or
+    excitations(H, FiniteExcited(), psi_finite, ...)."""
+    from .dmrgexcitation import FiniteExcited, excitations_dmrg
+
+    if isinstance(H, DenseMPO):
+        raise NotImplementedError(
+            "excitations of a DenseMPO (statmech boundaries) come with "
+            "queue-1 item 9 (ROADMAP.md)")
+    if not isinstance(H, MPOHamiltonian):
+        raise NotImplementedError(
+            f"excitations of a {type(H).__name__} are not ported yet: "
+            "reduced SU(2) MPOs and symmetric states come with queue-1 item "
+            "11 (ROADMAP.md)")
+    if isinstance(alg, QuasiparticleAnsatz):
+        if isinstance(args[0], FiniteMPS):
+            return excitations_finite(H, alg, *args, **kwargs)
+        if len(args) < 2 and "psi" not in kwargs:
+            raise NotImplementedError(
+                f"excitations on {type(args[0]).__name__} are not ported "
+                "yet: symmetric states come with queue-1 item 11 "
+                "(ROADMAP.md)")
+        return excitations_infinite(H, alg, *args, **kwargs)
+    if isinstance(alg, FiniteExcited):
+        return excitations_dmrg(H, alg, *args, **kwargs)
+    raise TypeError(type(alg))

@@ -25,12 +25,20 @@ def _expval_finite_mpoham(psi: FiniteMPS, H: MPOHamiltonian, envs=None):
     return (torch.vdot(AC, HAC) / torch.vdot(AC, AC)).real
 
 
-def expectation_value(psi, O, envs=None):
+def expectation_value(psi, O, *args, envs=None):
     """expectation_value(psi, H) for an MPOHamiltonian: <psi|H|psi> /
     <psi|psi> of a FiniteMPS (0-dim tensor), the per-site energy density
     of an InfiniteMPS ((L,) tensor); expectation_value(psi, (site, O)) for
-    a one-site operator on an InfiniteMPS. Other combinations come with
-    later slices."""
+    a one-site operator on an InfiniteMPS. Precomputed environments go by
+    keyword, `envs=`, as in the JAX package. A positional argument after
+    the operator (a site range or an int for a ranged energy, a time for a
+    MultipliedOperator) and the other combinations come with later
+    slices."""
+    if args:
+        raise NotImplementedError(
+            f"expectation_value(psi, O, {args[0]!r}) is not ported yet: "
+            "ranged energies and time-dependent operators come with queue-1 "
+            "item 10 (ROADMAP.md); pass precomputed environments as envs=")
     if isinstance(psi, FiniteMPS) and isinstance(O, MPOHamiltonian):
         return _expval_finite_mpoham(psi, O, envs)
     if isinstance(psi, InfiniteMPS):

@@ -8,15 +8,21 @@ from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from .dmrg import DMRG, find_groundstate_dmrg
 from .dmrg2 import DMRG2, find_groundstate_dmrg2
+from .grassmann import (
+    GradientGrassmann, find_groundstate_grassmann,
+    find_groundstate_grassmann_finite,
+)
 from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
     find_groundstate_idmrg2
 from .unionalg import ChainedAlg
 from .vumps import VUMPS, find_groundstate_vumps
 
-_FINITE = ((DMRG, find_groundstate_dmrg), (DMRG2, find_groundstate_dmrg2))
+_FINITE = ((DMRG, find_groundstate_dmrg), (DMRG2, find_groundstate_dmrg2),
+           (GradientGrassmann, find_groundstate_grassmann_finite))
 _INFINITE = ((VUMPS, find_groundstate_vumps),
              (IDMRG1, find_groundstate_idmrg1),
-             (IDMRG2, find_groundstate_idmrg2))
+             (IDMRG2, find_groundstate_idmrg2),
+             (GradientGrassmann, find_groundstate_grassmann))
 
 
 def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
@@ -25,12 +31,13 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
 
     With `alg` None a FiniteMPS runs one-site DMRG, first DMRG2 at
     max(tol, 1e-8) when a `trscheme` is given; an InfiniteMPS runs VUMPS at
-    max(tol, 1e-9), where the JAX package refines a tighter tol by
-    GradientGrassmann. Otherwise `alg` picks the solver: DMRG or DMRG2 for
-    a FiniteMPS, VUMPS, IDMRG1 or IDMRG2 for an InfiniteMPS; a ChainedAlg
-    runs its stages in turn. The other branches of the JAX dispatcher come
-    with later slices of the port and raise NotImplementedError naming
-    theirs (ROADMAP.md, queue 1)."""
+    max(tol, 1e-9) and, when VUMPS stops above a tighter tol, refines by
+    GradientGrassmann(tol=tol). Otherwise `alg` picks the solver: DMRG,
+    DMRG2 or GradientGrassmann for a FiniteMPS, VUMPS, IDMRG1, IDMRG2 or
+    GradientGrassmann for an InfiniteMPS; a ChainedAlg runs its stages in
+    turn. The other branches of the JAX dispatcher come with later slices
+    of the port and raise NotImplementedError naming theirs (ROADMAP.md,
+    queue 1)."""
     kw = {} if verbosity is None else {"verbosity": verbosity}
     if not isinstance(psi, (FiniteMPS, InfiniteMPS)):
         raise NotImplementedError(
@@ -54,11 +61,8 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
         psi, envs_out, eps = find_groundstate_vumps(
             psi, H, VUMPS(tol=vumps_tol, maxiter=maxiter, **kw))
         if tol < vumps_tol and eps > tol:
-            raise NotImplementedError(
-                f"find_groundstate: VUMPS stopped at eps={eps:.3e} above "
-                f"tol={tol:.1e}; the GradientGrassmann refinement that "
-                "follows comes with queue-1 item 9 (ROADMAP.md). Pass "
-                "tol >= 1e-9 or an explicit VUMPS")
+            psi, envs_out, eps = find_groundstate_grassmann(
+                psi, H, GradientGrassmann(tol=tol, **kw))
         return psi, envs_out, eps
     table = _FINITE if isinstance(psi, FiniteMPS) else _INFINITE
     for cls, run in table:
@@ -69,5 +73,4 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
             f"{type(alg).__name__} does not run on {type(psi).__name__}")
     raise NotImplementedError(
         f"find_groundstate with {type(alg).__name__} is not ported yet: "
-        "GradientGrassmann comes with queue-1 item 9, RealSpaceParallelDMRG "
-        "with item 10 (ROADMAP.md)")
+        "RealSpaceParallelDMRG comes with queue-1 item 10 (ROADMAP.md)")

@@ -10,6 +10,7 @@ import torch
 from .operators.mpo import MPOHamiltonian
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
+from .states.quasiparticle import FiniteQP, LeftGaugedQP
 
 
 def finite_mps_from_numpy(ALs, ARs, AC, center: int,
@@ -30,6 +31,30 @@ def infinite_mps_from_numpy(AL, AR, AC, C, device="cuda") -> InfiniteMPS:
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     return InfiniteMPS(t(AL), t(AR), t(AC), t(C))
+
+
+def left_gauged_qp_from_numpy(Xs, VLs, left_gs: InfiniteMPS,
+                              momentum: float,
+                              right_gs: InfiniteMPS = None) -> LeftGaugedQP:
+    """LeftGaugedQP from the (L, Dn, D) Xs and (L, D, d, Dn) VLs of a JAX
+    QP, on the device of its ground state(s) (carried across first with
+    `infinite_mps_from_numpy`): both packages then work in one null-space
+    basis, which a complete QR fixes only up to a unitary."""
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(left_gs.device)
+
+    right = right_gs if right_gs is not None else left_gs
+    return LeftGaugedQP(t(Xs), t(VLs), left_gs, right, float(momentum),
+                        right_gs is None)
+
+
+def finite_qp_from_numpy(Xs, VLs, ALs, ARs, mask, device="cuda") -> FiniteQP:
+    """FiniteQP from the numpy Xs, VLs, full gauges and mask of a JAX
+    FiniteQP, on the card unless `device` says otherwise."""
+    def t(a):
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+    return FiniteQP(t(Xs), t(VLs), t(ALs), t(ARs), t(mask).to(torch.bool))
 
 
 def mpo_from_numpy(W) -> MPOHamiltonian:

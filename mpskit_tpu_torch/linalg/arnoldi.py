@@ -1,14 +1,17 @@
-"""Arnoldi for the dominant (largest-magnitude) eigenpair of a general
-operator (counterpart of mpskit_tpu/linalg/arnoldi.py): the transfer-matrix
-fixed points of the uniform gauge fix.
+"""Arnoldi for the dominant (largest-magnitude) and the smallest-real-part
+eigenpair of a general operator (counterpart of
+mpskit_tpu/linalg/arnoldi.py): the transfer-matrix fixed points of the
+uniform gauge fix, and the non-Hermitian quasiparticle solve.
 
 `arnoldi_factorize` runs a fixed number of steps with no data-dependent
 exit, so its Hessenberg matrix stays on the device and is read once, at the
 end. The small Hessenberg eigenproblem is the JAX package's 300-step power
 iteration, run on the host in float64 (complex128 for a complex operator)
 numpy; only the m Ritz coefficients travel back to the device. The
-host-callback variants of the JAX module (full small spectra, real and
-smallest-real selection) come with later slices.
+smallest-real-part selection is LAPACK's `eig` on the host, where the JAX
+package reaches it through a host callback. The other host-callback
+variants of the JAX module (full small spectra, real selection) come with
+later slices.
 """
 
 from __future__ import annotations
@@ -95,5 +98,46 @@ def dominant_eigs(matvec: Callable, v0, m: int = 30, maxrestarts: int = 100,
         resid = (0.0 if nvalid < m else
                  float(abs(H[last + 1, last] * z[last])
                        / max(abs(theta), _BREAKDOWN)))
+        it += 1
+    return EigsResult(theta, x, resid, it, resid <= tol)
+
+
+def _host_eig_smallest_real(Hm, nvalid: int):
+    """Ritz pair with the smallest real part of the leading nvalid block of
+    a small host matrix, the vector phase-fixed so that its largest entry
+    is real; returned zero-padded to length m, in complex128."""
+    m = Hm.shape[0]
+    n = max(int(nvalid), 1)
+    w, V = np.linalg.eig(np.asarray(Hm, np.complex128)[:n, :n])
+    idx = int(np.argmin(w.real))
+    z = V[:, idx]
+    k = int(np.argmax(np.abs(z)))
+    z = z * (np.abs(z[k]) / z[k] if z[k] != 0 else 1.0)
+    out = np.zeros(m, np.complex128)
+    out[:n] = z
+    return complex(w[idx]), out
+
+
+def smallest_eigs_arnoldi(matvec: Callable, v0, m: int = 30,
+                          maxrestarts: int = 100,
+                          tol: float = 1e-12) -> EigsResult:
+    """Smallest-real-part eigenpair of a general (non-Hermitian) operator
+    by restarted Arnoldi (at least one restart), the Ritz selection on the
+    host. The eigenvalue is a host number: complex for a complex operator,
+    its real part for a real one (as the JAX package casts it)."""
+    x, theta, resid, it = v0, 0.0, float("inf"), 0
+    while it < maxrestarts and (it < 1 or resid > tol):
+        V, H, nvalid = arnoldi_factorize(matvec, x, m)
+        theta, z = _host_eig_smallest_real(H[:m, :m], nvalid)
+        if not v0.is_complex():
+            z = z.real
+        x = basis_combine(V[:m], torch.as_tensor(z, device=V.device))
+        x = x / torch.clamp(norm(x), min=_BREAKDOWN)
+        last = min(max(nvalid - 1, 0), m - 1)
+        resid = (0.0 if nvalid < m else
+                 float(abs(H[last + 1, last] * z[last])
+                       / max(abs(theta), _BREAKDOWN)))
+        if not v0.is_complex():
+            theta = theta.real
         it += 1
     return EigsResult(theta, x, resid, it, resid <= tol)

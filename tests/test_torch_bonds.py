@@ -246,8 +246,8 @@ def test_branches_not_ported_raise(name, item):
         changebonds(fin, OptimalExpand())
     with pytest.raises(ValueError, match="InfiniteMPS"):
         changebonds(fin, H, VUMPSSvdCut())
-    grassmann = type("GradientGrassmann", (), {})()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        find_groundstate(inf, H, grassmann)
+    rsdmrg = type("RealSpaceParallelDMRG", (), {})()
+    with pytest.raises(NotImplementedError, match="item 10"):
+        find_groundstate(inf, H, rsdmrg)
     with pytest.raises(TypeError, match="DMRG2 does not run"):
         find_groundstate(inf, H, DMRG2())

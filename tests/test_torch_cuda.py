@@ -118,7 +118,7 @@ def test_float32_dmrg_on_card_goes_through_k1():
         psi, H, DMRG(krylovdim=10, eig_maxrestarts=2, cheap_galerkin=True,
                      maxiter=6, verbosity=0))
     assert k1.launches > before
-    E = float(expectation_value(psi, H, envs))
+    E = float(expectation_value(psi, H, envs=envs))
     assert abs(E - e0) <= 1e-5 * abs(e0)
 
 
@@ -160,7 +160,7 @@ def test_vumps_on_card_matches_the_integral(dtype, D, rel_tol):
     before = k1.launches
     psi, envs, _ = find_groundstate(psi, H, alg)
     assert k1.launches == before
-    e = float(expectation_value(psi, H, envs)[0])
+    e = float(expectation_value(psi, H, envs=envs)[0])
     if rel_tol is None:
         assert abs(e - e0) < 1e-7
         assert abs(float(envs.e_density) - e0) < 1e-7
@@ -186,7 +186,7 @@ def test_dmrg2_on_card_matches_float64():
             psi, H, DMRG2(tol=tol, maxiter=8, krylovdim=10, eig_maxrestarts=2,
                           trscheme=truncdim(D), verbosity=0))
         assert psi.AC.dtype == dtype and torch.isfinite(psi.AC).all()
-        energies[dtype] = float(expectation_value(psi, H, envs))
+        energies[dtype] = float(expectation_value(psi, H, envs=envs))
     assert k1.launches == before
     e64, e32 = energies[torch.float64], energies[torch.float32]
     assert abs(e32 - e64) <= 1e-5 * abs(e64)
@@ -293,3 +293,40 @@ def test_time_evolution_entry_points_run_on_the_card_by_default():
     ipsi = InfiniteMPS.random(1, 2, 4, torch.complex128)
     out, envs = timestep(ipsi, H, 0.0, 0.05)
     assert out.AL.device.type == "cuda" and envs.GLs.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_qp_solve_on_card_matches_cpu():
+    """The quasiparticle solve at D=12 (TFIM g=1.5, float64, p = 0 and
+    pi) on the card against the same solve on the CPU from one ground
+    state (each device draws its own seeded start vector): the energies to
+    1e-8, and to 5e-3 of 2(g - 1) and 2(g + 1); GradientGrassmann and the
+    QP environments launch no K1 (float64, no matvec_fast)."""
+    from mpskit_tpu_torch import (
+        GradientGrassmann, QuasiparticleAnsatz, excitations,
+    )
+
+    _need_card()
+    H = transverse_field_ising_lattice(g=1.5)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    psi = InfiniteMPS.random(1, 2, 12, torch.float64, "cuda", gen)
+    before = k1.launches
+    psi, envs, _ = find_groundstate(
+        psi, H, VUMPS(tol=1e-9, maxiter=150, verbosity=0)
+        & GradientGrassmann(tol=1e-10, maxiter=5, verbosity=0))
+    es = {}
+    for dev in ("cuda", "cpu"):
+        p = InfiniteMPS(*(x.to(dev) for x in (psi.AL, psi.AR, psi.AC,
+                                              psi.C)))
+        es[dev], qps = excitations(H, QuasiparticleAnsatz(tol=1e-8),
+                                   [0.0, np.pi], p,
+                                   generator=torch.Generator().manual_seed(0)
+                                   if dev == "cpu" else
+                                   torch.Generator(device="cuda")
+                                   .manual_seed(0))
+        assert qps[0][0].Xs.device.type == dev
+    assert k1.launches == before
+    np.testing.assert_allclose(es["cuda"].numpy(), es["cpu"].numpy(),
+                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(es["cuda"][:, 0].numpy(), [1.0, 5.0],
+                               rtol=0, atol=5e-3)

@@ -12,7 +12,7 @@ from mpskit_tpu_torch import (
 )
 from mpskit_tpu_torch.environments import finite as tenv
 from mpskit_tpu_torch.interop import (
-    finite_mps_from_numpy, infinite_mps_from_numpy,
+    finite_mps_from_numpy, finite_qp_from_numpy, infinite_mps_from_numpy,
 )
 
 L, d, D = 4, 2, 4
@@ -36,7 +36,8 @@ def _no_card():
 
 
 @pytest.mark.parametrize("entry", ["random", "from_numpy",
-                                   "infinite_random", "infinite_from_numpy"])
+                                   "infinite_random", "infinite_from_numpy",
+                                   "finite_qp_from_numpy"])
 def test_entry_points_default_to_the_card(entry):
     _no_card()
     # CPU-only torch raises AssertionError ("not compiled with CUDA"), a
@@ -48,8 +49,12 @@ def test_entry_points_default_to_the_card(entry):
             finite_mps_from_numpy(*_arrays(), 0)
         elif entry == "infinite_random":
             InfiniteMPS.random(1, d, D, torch.float64)
-        else:
+        elif entry == "infinite_from_numpy":
             infinite_mps_from_numpy(*_infinite_arrays())
+        else:
+            As = _arrays()[0]
+            finite_qp_from_numpy(As[:, :, :, :2].sum(1), As, As, As,
+                                 np.ones((L, 2, D), bool))
 
 
 def test_entry_points_on_the_cpu_when_asked():
@@ -107,3 +112,33 @@ def test_time_evolution_stays_on_the_states_device():
     U = make_time_mpo(H, 0.05, WII())
     assert isinstance(U.site(0), np.ndarray)
     assert apply_densempo_finite(U, psi).ARs.device.type == "cpu"
+
+
+def test_excitations_and_grassmann_stay_on_the_states_device():
+    """GradientGrassmann, the quasiparticle solves, the QP gauge change
+    and FiniteExcited keep CPU states on the CPU; the energies come back
+    as CPU tensors."""
+    from mpskit_tpu_torch import (
+        VUMPS, FiniteExcited, GradientGrassmann, QuasiparticleAnsatz,
+        excitations, find_groundstate, left_to_right_gauge,
+    )
+
+    H = transverse_field_ising_lattice(g=1.5)
+    gen = torch.Generator().manual_seed(0)
+    psi = FiniteMPS.random(L, d, D, torch.float64, "cpu", gen)
+    psi, envs, _ = find_groundstate(psi, H, GradientGrassmann(maxiter=5,
+                                                              verbosity=0))
+    assert psi.AC.device.type == "cpu" and envs.GLs.device.type == "cpu"
+    for alg in (QuasiparticleAnsatz(tol=1e-6), FiniteExcited(maxiter=2)):
+        es, states = excitations(H, alg, psi, num=1)
+        assert es.device.type == "cpu" and es.dtype == torch.float64
+        assert (states[0].ALs.device.type == "cpu")
+    ipsi = InfiniteMPS.random(1, d, D, torch.complex128, "cpu", gen)
+    ipsi, ienvs, _ = find_groundstate(
+        ipsi, H, VUMPS(maxiter=3, verbosity=0)
+        & GradientGrassmann(maxiter=2, verbosity=0))
+    assert ipsi.AL.device.type == "cpu" and ienvs.GLs.device.type == "cpu"
+    es, qps = excitations(H, QuasiparticleAnsatz(tol=1e-6, maxrestarts=2),
+                          0.5, ipsi, envs=ienvs)
+    assert es.shape == (1, 1) and qps[0][0].Xs.device.type == "cpu"
+    assert left_to_right_gauge(qps[0][0]).Xs.device.type == "cpu"

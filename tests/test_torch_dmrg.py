@@ -101,7 +101,7 @@ def test_find_groundstate_matches_ed(model):
     gen = torch.Generator().manual_seed(0)
     psi = FiniteMPS.random(L, 2, D, torch.complex128, "cpu", gen)
     psi, envs, eps = find_groundstate(psi, H, DMRG(tol=1e-10, maxiter=50))
-    E = float(expectation_value(psi, H, envs))
+    E = float(expectation_value(psi, H, envs=envs))
     assert abs(E - _ed_energy(H, L)) <= 1e-8
     assert eps < 1e-8
 
@@ -122,4 +122,4 @@ def test_find_groundstate_matches_tfim_closed_form():
     alg = DMRG(krylovdim=10, eig_maxrestarts=2, cheap_galerkin=True,
                maxiter=20, verbosity=0)
     psi, envs, eps = find_groundstate(psi, H, alg)
-    assert abs(float(expectation_value(psi, H, envs)) - e0(L, 1.5)) <= 1e-8
+    assert abs(float(expectation_value(psi, H, envs=envs)) - e0(L, 1.5)) <= 1e-8

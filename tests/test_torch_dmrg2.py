@@ -272,11 +272,11 @@ def test_dmrg2_tfim_matches_ed():
                             torch.Generator().manual_seed(0))
     psi, envs, eps = find_groundstate(
         psi0, H, DMRG2(tol=1e-11, maxiter=40, trscheme=tops.truncbelow(1e-9)))
-    assert abs(float(expectation_value(psi, H, envs)) - e0) <= 1e-8
+    assert abs(float(expectation_value(psi, H, envs=envs)) - e0) <= 1e-8
     assert eps < 1e-11
     psi, envs, eps = find_groundstate(psi0, H,
                                       trscheme=tops.truncbelow(1e-9))
-    assert abs(float(expectation_value(psi, H, envs)) - e0) <= 1e-8
+    assert abs(float(expectation_value(psi, H, envs=envs)) - e0) <= 1e-8
     assert eps < 1e-10
 
 
@@ -290,7 +290,7 @@ def test_dmrg2_heisenberg_matches_ed_and_its_entanglement():
     psi = FiniteMPS.random(L, 2, D, torch.complex128, "cpu",
                            torch.Generator().manual_seed(1))
     psi, envs, _ = find_groundstate(psi, H, DMRG2(tol=1e-10, maxiter=40))
-    assert abs(float(expectation_value(psi, H, envs)) - e0) <= 1e-8
+    assert abs(float(expectation_value(psi, H, envs=envs)) - e0) <= 1e-8
     S_ed = np.linalg.svd(v0.reshape(2 ** (L // 2), -1), compute_uv=False)
     S = _np(entanglement_spectrum(psi, L // 2))
     np.testing.assert_allclose(S[:S_ed.size], S_ed, rtol=0, atol=1e-8)
@@ -381,14 +381,14 @@ def test_find_groundstate_idmrg_matches_the_integral():
     psi = InfiniteMPS.random(1, 2, 12, torch.float64, "cpu", gen)
     psi, envs, err = find_groundstate(psi, H, IDMRG1(tol=1e-10, maxiter=300))
     assert err < 1e-10
-    assert abs(float(expectation_value(psi, H, envs)[0]) - TFIM_E0) < 1e-6
+    assert abs(float(expectation_value(psi, H, envs=envs)[0]) - TFIM_E0) < 1e-6
     H2 = transverse_field_ising_lattice(g=G, period=2)
     psi = InfiniteMPS.random(2, 2, 12, torch.float64, "cpu", gen)
     psi, envs, err = find_groundstate(
         psi, H2, IDMRG2(tol=1e-10, maxiter=200,
                         trscheme=tops.truncbelow(1e-10)))
     assert psi.period == 2
-    np.testing.assert_allclose(_np(expectation_value(psi, H2, envs)),
+    np.testing.assert_allclose(_np(expectation_value(psi, H2, envs=envs)),
                                TFIM_E0, rtol=0, atol=1e-6)
     with pytest.raises(ValueError, match="at least 2"):
         find_groundstate(InfiniteMPS.random(1, 2, 4, torch.float64, "cpu",

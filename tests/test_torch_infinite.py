@@ -280,7 +280,7 @@ def test_hamiltonian_environments_match_jax(model, L):
         assert abs(float(et.e_density) - float(ej.e_density)) <= 1e-12
         assert et.resid <= 1e-9
     np.testing.assert_allclose(
-        _np(expectation_value(pt, Ht, cold_t)),
+        _np(expectation_value(pt, Ht, envs=cold_t)),
         np.asarray(jexp.expval_infinite_mpoham(pj, Hj, cold_j)), rtol=0,
         atol=1e-12)
 
@@ -328,7 +328,7 @@ def test_find_groundstate_vumps_tfim_integral():
     psi = InfiniteMPS.random(1, 2, 12, device="cpu", generator=gen)
     psi, envs, eps = find_groundstate(psi, H, VUMPS(tol=1e-9, maxiter=150))
     assert eps < 1e-9
-    assert abs(float(expectation_value(psi, H, envs)[0]) - TFIM_E0) < 1e-7
+    assert abs(float(expectation_value(psi, H, envs=envs)[0]) - TFIM_E0) < 1e-7
     assert abs(float(envs.e_density) - TFIM_E0) < 1e-7
 
 
@@ -364,21 +364,65 @@ def test_device_batch_changes_nothing():
     assert float(e1.e_density) == float(e8.e_density)
 
 
-def test_find_groundstate_infinite_dispatch():
-    """The default tol (below VUMPS's 1e-9 floor) raises for the missing
-    GradientGrassmann refinement only where it would run; a ChainedAlg
-    runs its stages; a finite-chain algorithm is refused."""
+def test_find_groundstate_infinite_dispatch(monkeypatch):
+    """The default tol (below VUMPS's 1e-9 floor) refines by
+    GradientGrassmann(tol=tol) only where VUMPS stops above it; a
+    ChainedAlg runs its stages; a finite-chain algorithm is refused. (The
+    refinement itself is pinned against JAX in test_torch_grassmann.py.)"""
+    import importlib
+
+    from mpskit_tpu_torch import GradientGrassmann
+
+    fgs = importlib.import_module(
+        "mpskit_tpu_torch.algorithms.find_groundstate")
+
     H = transverse_field_ising_lattice(g=G)
     psi = InfiniteMPS.random(1, 2, 6, torch.float64, "cpu",
                              torch.Generator().manual_seed(2))
-    with pytest.raises(NotImplementedError, match="GradientGrassmann"):
-        find_groundstate(psi, H, maxiter=3, verbosity=0)
+    calls = []
+
+    def refine(psi, H, alg):
+        calls.append(alg)
+        return psi, None, 0.0
+
+    monkeypatch.setattr(fgs, "find_groundstate_grassmann", refine)
+    _, _, eps = find_groundstate(psi, H, maxiter=3, verbosity=0)
+    assert eps == 0.0 and calls == [GradientGrassmann(tol=1e-10,
+                                                      verbosity=0)]
     # tol >= 1e-9: VUMPS alone, no refinement, whatever eps it reaches
     _, _, eps = find_groundstate(psi, H, tol=1e-9, maxiter=3, verbosity=0)
-    assert eps > 1e-9
+    assert eps > 1e-9 and len(calls) == 1
+    monkeypatch.undo()
     chained = VUMPS(maxiter=2, verbosity=0) & VUMPS(maxiter=2, verbosity=0)
     assert len(chained) == 2
     _, envs, eps = find_groundstate(psi, H, chained)
     assert np.isfinite(eps) and np.isfinite(float(envs.e_density))
     with pytest.raises(TypeError, match="DMRG does not run on InfiniteMPS"):
         find_groundstate(psi, H, DMRG())
+
+
+def test_expectation_value_takes_envs_by_keyword():
+    """F1: the JAX signature (psi, O, *args, envs=None). A random
+    InfiniteMPS (period 1, D=4, complex128, JAX PRNGKey(1)) with
+    `transverse_field_ising(g=1.3)`: a site range after the operator, a ranged energy in the JAX
+    package (0.50408), raises NotImplementedError here until ranged
+    energies are ported, and so does an int; envs passed by keyword give
+    the density that the environments give."""
+    Hj = jham.transverse_field_ising(g=1.3)
+    Ht = mpo_from_numpy(np.asarray(Hj.W))
+    pj = jimps.InfiniteMPS.random(jax.random.PRNGKey(1), 1, 2, 4)
+    pt = _carry(pj)
+    from mpskit_tpu.algorithms.expval import expectation_value as jexpval
+
+    assert abs(float(jnp.real(jexpval(pj, Hj, range(0, 4)))) - 0.50408) \
+        <= 1e-5
+    for arg in (range(0, 4), 2):
+        with pytest.raises(NotImplementedError, match="item 10"):
+            expectation_value(pt, Ht, arg)
+    envs = tinf.hamiltonian_environments(pt, Ht)
+    e_kw = _np(expectation_value(pt, Ht, envs=envs))
+    np.testing.assert_allclose(e_kw, _np(tinf.hamiltonian_environments(
+        pt, Ht).e_density)[None], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(
+        e_kw, np.asarray(jexp.expval_infinite_mpoham(pj, Hj)), rtol=0,
+        atol=1e-12)

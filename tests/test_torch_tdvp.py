@@ -290,7 +290,7 @@ def test_groundstate_picks_up_only_a_phase():
                            torch.Generator().manual_seed(1))
     psi, envs, _ = find_groundstate(psi, H, DMRG(tol=1e-10, maxiter=40,
                                                  verbosity=0))
-    E0 = float(expectation_value(psi, H, envs))
+    E0 = float(expectation_value(psi, H, envs=envs))
     psi_t, _ = timestep(psi, H, 0.0, 0.05, TDVP())
     assert abs(float(expectation_value(psi_t, H)) - E0) <= 1e-8
     assert abs(abs(complex(psi.dot(psi_t))) - 1.0) <= 1e-8
