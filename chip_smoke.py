@@ -112,7 +112,32 @@ Phases, in order; any failure exits non-zero:
      0.41047925, the energy after GradientGrassmann no more than 1e-12
      above VUMPS's and no more than 1e-10 below it (VUMPS converged to eps
      1e-9), at least 2 accepted CG steps, finite tensors, zero K1
-     launches.
+     launches;
+ 15. the statmech boundaries in complex128 (`[boundary-f64]` lines), at
+     the JAX tests' configurations on the critical classical Ising MPO:
+     VUMPS_Boundary D=13 (tol 1e-9, 60 iterations) and an MPOHamiltonian
+     row D=13 (40 iterations) within 1e-3 of the reference's 2.5337, VOMPS D=8 within 2e-3,
+     GradientGrassmann D=10 after a VOMPS(tol=1e-3) warm-up within 1e-3
+     (and not below the warm-up's eigenvalue), two MPOMultiline rows D=8
+     (|lambda_0 lambda_1|^(1/2) within 5e-3); the six-vertex boundary
+     (two-site cell, D=10) with |lambda_qp(0)| > |lambda_qp(pi/2)| through
+     excitations(O, QuasiparticleAnsatz(), ...); approximate(FitDMRG) of
+     a finite Ising row applied to a random state (fidelity 1e-6); one
+     leading_boundary iteration at D=16 on the card against the CPU to
+     1e-10; each eigenvalue beside Onsager's; zero K1 launches;
+ 16. the boundary slice at full width (`[boundary]` lines):
+     leading_boundary of the critical classical Ising MPO from a seeded
+     random D=256 complex128 state with VUMPS_Boundary(tol=1e-9,
+     maxiter=20) (krylovdim 30, environment tolerance 1e-12, gauge
+     tolerance 1e-13): eps and lambda every 5 iterations, the metric
+     boundary_vumps_iteration_time_ising_D256_complex128 (the mean of
+     iterations 2..N) with host syncs per iteration in a JSON line, the
+     last iteration again split by synchronizations into the environment
+     solves, the AC solve, the C solve, the from_AL gauge fix and the
+     rest, plainly and under torch.profiler (busy time, idle share, the
+     ten largest device operations); gates: lambda within 1e-7 relative
+     of Onsager's and within 1e-3 of 2.5337, eps falling from iteration
+     5, finite tensors, zero K1 launches.
 Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -170,6 +195,14 @@ E_GG_JAX = -1.6719262215361526
 E_TOL_GG = 1e-10
 # phase 14: the Haldane gap (BASELINE.md row 1, tests/test_haldane.py)
 HALDANE_D, HALDANE_GAP, HALDANE_TOL = 48, 0.41047925, 1e-4
+# phases 15-16: the critical 2D classical Ising boundary (BASELINE.json
+# configs[4]): Onsager's leading transfer eigenvalue per site, sqrt(2)
+# exp(2 G / pi) with G Catalan's constant, and the reference test's oracle
+# (BASELINE.md:18)
+ONSAGER = float(np.sqrt(2) * np.exp(2 * 0.915965594177219015 / np.pi))
+BOUNDARY_ORACLE, BOUNDARY_ORACLE_TOL = 2.5337, 1e-3
+BOUNDARY_D, BOUNDARY_ITERS, BOUNDARY_REL_TOL = 256, 20, 1e-7
+BOUNDARY_CARD_TOL = 1e-10   # one iteration, card against CPU, complex128
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -1659,6 +1692,302 @@ def phase_haldane():
     return launches
 
 
+def _boundary_gate(name, lam, ref, tol):
+    """Log a boundary eigenvalue beside Onsager's and its gate; raise if it
+    misses the gate."""
+    lam = complex(lam)
+    log(f"[boundary-f64] {name}: lambda={lam.real:.12f}{lam.imag:+.1e}j, "
+        f"|lambda - Onsager| {abs(lam - ONSAGER):.3e}, |lambda - {ref}| "
+        f"{abs(lam - ref):.3e} (tol {tol})")
+    if not abs(lam - ref) <= tol:
+        raise RuntimeError(f"{name}: the boundary eigenvalue misses {ref}")
+
+
+def phase_boundary_f64():
+    """Phase 15: the boundary algorithms in complex128 at the JAX tests'
+    configurations (tests/test_statmech.py, test_multiline.py,
+    test_statmech_qp.py, test_finite_statmech.py), each against the
+    reference's oracle, and one iteration on the card against the CPU."""
+    import torch
+    from mpskit_tpu_torch import (
+        VOMPS, FiniteMPS, FitDMRG, GradientGrassmann, InfiniteMPS,
+        MPOMultiline, MPSMultiline, QuasiparticleAnsatz, VUMPS_Boundary,
+        approximate, classical_ising, excitations, expectation_value,
+        finite_classical_ising, leading_boundary, sixvertex,
+    )
+    from mpskit_tpu_torch.interop import mpo_from_numpy
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.operators.apply import apply_densempo_finite
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    O, ref, tol = classical_ising(), BOUNDARY_ORACLE, BOUNDARY_ORACLE_TOL
+    launches = k1.launches
+
+    def rand(L, D):
+        return InfiniteMPS.random(L, 2, D, torch.complex128, "cuda", gen)
+
+    t0 = time.perf_counter()
+    psi, envs, eps = leading_boundary(rand(1, 13), O,
+                                      VUMPS_Boundary(tol=1e-9, maxiter=60))
+    _boundary_gate(f"VUMPS_Boundary D=13 tol 1e-9, 60 iterations (eps "
+                   f"{eps:.1e}, "
+                   f"{time.perf_counter() - t0:.1f} s)",
+                   expectation_value(psi, O, envs=envs), ref, tol)
+
+    t0 = time.perf_counter()
+    psi, envs, eps = leading_boundary(rand(1, 8), O,
+                                      VOMPS(tol=1e-7, maxiter=350))
+    _boundary_gate(f"VOMPS D=8 tol 1e-7 (eps {eps:.1e}, "
+                   f"{time.perf_counter() - t0:.1f} s)",
+                   expectation_value(psi, O, envs=envs), ref, 2e-3)
+
+    t0 = time.perf_counter()
+    psi, envs, _ = leading_boundary(rand(1, 10), O,
+                                    VOMPS(tol=1e-3, maxiter=60))
+    lam0 = complex(expectation_value(psi, O, envs=envs))
+    psi, envs, gnorm = leading_boundary(
+        psi, O, GradientGrassmann(tol=1e-7, maxiter=40))
+    lam = complex(expectation_value(psi, O, envs=envs))
+    _boundary_gate(f"GradientGrassmann D=10 after VOMPS(tol=1e-3) "
+                   f"(lambda {lam0.real:.10f} -> {lam.real:.10f}, gradient "
+                   f"norm {gnorm:.2e}, {time.perf_counter() - t0:.1f} s)",
+                   lam, ref, tol)
+    if not abs(lam) >= abs(lam0) - 1e-12:
+        raise RuntimeError("GradientGrassmann lowered the boundary "
+                           "eigenvalue")
+
+    # an FSM MPOHamiltonian row: block diagonal, the Ising transfer on
+    # level 0 and a 0.5-scaled copy on level 1
+    T = O.site(0)
+    w = T.shape[0]
+    W = np.zeros((1, 2 * w, 2 * w, 2, 2), T.dtype)
+    W[0, :w, :w], W[0, w:, w:] = T, 0.5 * T
+    t0 = time.perf_counter()
+    psi, _, eps = leading_boundary(rand(1, 13), mpo_from_numpy(W),
+                                   VUMPS_Boundary(tol=1e-9, maxiter=40))
+    _boundary_gate(f"MPOHamiltonian row D=13 (eps {eps:.1e}, "
+                   f"{time.perf_counter() - t0:.1f} s)",
+                   expectation_value(psi, O), ref, tol)
+
+    t0 = time.perf_counter()
+    psi, envs, eps = leading_boundary(
+        MPSMultiline((rand(1, 8), rand(1, 8))), MPOMultiline.from_mpo(O, 2),
+        VUMPS_Boundary(tol=1e-6, maxiter=60, krylovdim=20))
+    lam_prod = envs[0].lambda_cell * envs[1].lambda_cell
+    _boundary_gate(f"two-row MPOMultiline D=8, |lambda_0 lambda_1|^(1/2) "
+                   f"(eps {eps:.1e}, {time.perf_counter() - t0:.1f} s)",
+                   abs(lam_prod) ** 0.5, ref, 5e-3)
+
+    # the six-vertex dispersion (reference test/algorithms.jl:212-219)
+    O6 = sixvertex()
+    t0 = time.perf_counter()
+    psi, envs, eps = leading_boundary(rand(2, 10), O6,
+                                      VUMPS_Boundary(tol=1e-8, maxiter=200))
+    lams, _ = excitations(O6, QuasiparticleAnsatz(), [0.0, np.pi / 2], psi,
+                          envs=envs, tol=1e-5)
+    l0, l1 = complex(lams[0]), complex(lams[1])
+    log(f"[boundary-f64] sixvertex two-site cell D=10 (eps {eps:.1e}): "
+        f"|lambda_qp(0)| {abs(l0):.10f} > |lambda_qp(pi/2)| {abs(l1):.10f}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (np.isfinite(abs(l0)) and np.isfinite(abs(l1))
+            and abs(l0) > abs(l1)):
+        raise RuntimeError("the six-vertex dispersion is not finite or not "
+                           "largest at p = 0")
+
+    # approximate: a finite Ising row applied to a random state
+    N, D = 6, 12
+    Orow = finite_classical_ising(N)
+    phi = FiniteMPS.random(N, 2, D, torch.complex128, "cuda", gen)
+    target = apply_densempo_finite(Orow, phi, Dmax=D)
+    psi, _, eps = approximate(FiniteMPS.random(N, 2, D, torch.complex128,
+                                               "cuda", gen),
+                              (Orow, phi), FitDMRG(tol=1e-10, maxiter=40))
+    fid = abs(complex(psi.dot(target))) / (
+        abs(complex(psi.dot(psi))) * abs(complex(target.dot(target)))) ** 0.5
+    log(f"[boundary-f64] approximate(FitDMRG) finite_classical_ising({N}) "
+        f"D={D}: fidelity 1 - {1 - fid:.3e} (tol 1e-6), eps {eps:.1e}")
+    if not 1 - fid <= 1e-6:
+        raise RuntimeError("approximate(FitDMRG) misses the applied MPO")
+
+    # one leading_boundary iteration at D=16 on the card and on the CPU
+    psi = rand(1, 16)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = InfiniteMPS(*(x.to(dev) for x in (psi.AL, psi.AR, psi.AC,
+                                              psi.C)))
+        out[dev] = leading_boundary(p, O, VUMPS_Boundary(maxiter=1,
+                                                         verbosity=0))
+    (pc, ec, epsc), (ph, eh, epsh) = out["cuda"], out["cpu"]
+    sv = [torch.linalg.svdvals(p.C[0]).cpu() for p in (pc, ph)]
+    diffs = (abs(epsc - epsh), abs(ec.lambda_cell - eh.lambda_cell),
+             float((sv[0] - sv[1]).abs().max()))
+    log(f"[boundary-f64] one iteration D=16, card against CPU: |d eps| "
+        f"{diffs[0]:.1e}, |d lambda| {diffs[1]:.1e}, Schmidt values "
+        f"{diffs[2]:.1e} (tol {BOUNDARY_CARD_TOL}); device "
+        f"{pc.C.device.type}")
+    if not (max(diffs) <= BOUNDARY_CARD_TOL and pc.C.device.type == "cuda"):
+        raise RuntimeError("the boundary iteration on the card differs from "
+                           "the CPU's")
+    if k1.launches != launches:
+        raise RuntimeError("the float64 boundary path launched K1")
+
+
+def _boundary_split(psi, Os, guesses, inner_tol, marks):
+    """One boundary VUMPS iteration as `_boundary_vumps_iteration` runs it,
+    with a synchronization and a mark (time, host syncs) after each
+    part."""
+    import torch
+    from mpskit_tpu_torch import InfiniteMPS
+    from mpskit_tpu_torch.algorithms import statmech as tsm
+    from mpskit_tpu_torch.utils import sync
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter(), sync.count))
+
+    mark("start")
+    envs = tsm.mpo_environments(psi, Os, tol=1e-12, krylovdim=30,
+                                GL0=guesses[0], GR0=guesses[1])
+    mark("environments (two Arnoldi fixed points)")
+    ACs, _, _ = tsm._solve_acs(envs, Os, psi.AC, 30, inner_tol)
+    mark("AC solve")
+    Cs, _, _ = tsm._solve_cs(envs, psi.C, 30, inner_tol)
+    mark("C solve")
+    ALs, eps = tsm._boundary_regauge(ACs, Cs)
+    mark("other (regauge, eps)")
+    InfiniteMPS.from_AL(ALs, psi.C[-1], tol=1e-13)
+    mark("from_AL gauge fix")
+
+
+def phase_boundary():
+    """Phase 16: the boundary slice at full width: leading_boundary of the
+    critical classical Ising MPO at D=256 in complex128 with
+    VUMPS_Boundary."""
+    import torch
+    from mpskit_tpu_torch import (
+        InfiniteMPS, VUMPS_Boundary, classical_ising, expectation_value,
+        leading_boundary,
+    )
+    from mpskit_tpu_torch.algorithms import statmech as tsm
+    from mpskit_tpu_torch.environments.infinite_mpo import stack_O
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+    from mpskit_tpu_torch.utils.dynamictols import updatetol
+
+    D, O = BOUNDARY_D, classical_ising()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    psi = InfiniteMPS.random(1, 2, D, torch.complex128, "cuda", gen)
+
+    # every iteration observed: its end time, host syncs, eps (read after
+    # the run), the eigenvalue of the state it starts from (its
+    # environment solve's, a host number) and its arguments
+    rec, lams = [], []
+    iteration, environments = tsm._boundary_vumps_iteration, \
+        tsm.mpo_environments
+
+    def iteration_recorded(*args, **kwargs):
+        out = iteration(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec.append((time.perf_counter(), sync.count, out[1], args, kwargs))
+        return out
+
+    def environments_recorded(*args, **kwargs):
+        envs = environments(*args, **kwargs)
+        lams.append(envs.lambda_cell)
+        return envs
+
+    k1.launches = 0
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    with _patched(tsm, _boundary_vumps_iteration=iteration_recorded,
+                  mpo_environments=environments_recorded):
+        psi, envs, eps = leading_boundary(
+            psi, O, VUMPS_Boundary(tol=1e-9, maxiter=BOUNDARY_ITERS))
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    launches = k1.launches
+    n = len(rec)
+    ends = [t0] + [r[0] for r in rec]
+    syncs = [c0] + [r[1] for r in rec]
+    eps_it = sync.to_host(*[r[2] for r in rec])
+    lam = complex(expectation_value(psi, O, envs=envs))
+    for i in range(4, n, 5):
+        # the eigenvalue of iteration i's output is the next one's first
+        lam_i = complex(lams[i + 1]) if i + 1 < n else lam
+        log(f"[boundary] iteration {i + 1}: eps {eps_it[i]:.3e}, lambda "
+            f"{lam_i.real:.15f} (rel err {abs(lam_i - ONSAGER) / ONSAGER:.3e}"
+            f"), {ends[i + 1] - ends[i]:.3f} s, {syncs[i + 1] - syncs[i]} "
+            "host syncs")
+    s_it = (ends[n] - ends[1]) / (n - 1)
+    syncs_it = (syncs[n] - syncs[1]) / (n - 1)
+    log(f"[boundary] critical Ising D={D} complex128: {n} iterations, "
+        f"{t_all:.1f} s in leading_boundary (the final environments and the "
+        f"uniqueness check included), {s_it:.4f} s/iteration and "
+        f"{syncs_it:.1f} host syncs/iteration over iterations 2-{n}")
+    log(json.dumps({
+        "metric": f"boundary_vumps_iteration_time_ising_D{D}_complex128",
+        "value": s_it, "unit": "s", "iterations": n,
+        "host_syncs_per_iter": syncs_it}))
+
+    # outside the timed run: the last iteration again, split by
+    # synchronizations, plainly and under the profiler
+    args, kwargs = rec[-1][3], rec[-1][4]
+    Os = stack_O(O, 1, psi.dtype, psi.device)
+    inner_tol = updatetol(eps_it[-2] if n > 1 else 1.0, n)
+    marks = []
+    _boundary_split(args[0], Os, (kwargs.get("GL_guess"),
+                                  kwargs.get("GR_guess")), inner_tol, marks)
+    total = marks[-1][1] - marks[0][1]
+    log(f"[boundary] iteration {n} again, split ({total * 1e3:.1f} ms, "
+        f"{marks[-1][2] - marks[0][2]} host syncs): " + "; ".join(
+            f"{marks[i][0]} {(marks[i][1] - marks[i - 1][1]) * 1e3:.1f} ms "
+            f"({(marks[i][1] - marks[i - 1][1]) / total:.1%}, "
+            f"{marks[i][2] - marks[i - 1][2]} syncs)"
+            for i in range(1, len(marks))))
+
+    def one():
+        return iteration(*args, **kwargs)
+
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t1) * 1e3
+    busy, n_dev, by_name = _device_busy_ms(one)
+    log(f"[boundary] iteration {n} again: {plain:.1f} ms; under "
+        "torch.profiler: " + (
+            f"{n_dev} kernels and copies, busy {busy:.1f} ms, idle share "
+            f"{1 - busy / plain:.1%}" if busy else
+            "no device time in the trace: idle share not measured"))
+    for name, (ms, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:10]:
+        log(f"[boundary] device op {ms:.3f} ms in {count} calls: "
+            f"{name[:110]}")
+
+    rel = abs(lam - ONSAGER) / ONSAGER
+    falling = n >= 5 and eps_it[-1] < eps_it[4]
+    log(f"[boundary] lambda {lam.real:.15f}{lam.imag:+.1e}j, Onsager "
+        f"{ONSAGER:.15f}, rel err {rel:.3e} (tol {BOUNDARY_REL_TOL}); "
+        f"|lambda - {BOUNDARY_ORACLE}| {abs(lam - BOUNDARY_ORACLE):.3e} (tol "
+        f"{BOUNDARY_ORACLE_TOL}); eps {eps_it[4] if n >= 5 else None} at "
+        f"iteration 5 -> {eps_it[-1]:.3e} at {n}; K1 launches in this "
+        f"phase: {launches}")
+    for name in ("AL", "AR", "AC", "C"):
+        t = getattr(psi, name)
+        if not torch.isfinite(t).all() or t.shape[1] != D:
+            raise RuntimeError(f"the boundary state's {name} is not finite or "
+                               "has the wrong width")
+    if not rel <= BOUNDARY_REL_TOL:
+        raise RuntimeError("the D=256 boundary eigenvalue misses Onsager's")
+    if not abs(lam - BOUNDARY_ORACLE) <= BOUNDARY_ORACLE_TOL:
+        raise RuntimeError("the D=256 boundary eigenvalue misses 2.5337")
+    if not falling:
+        raise RuntimeError("boundary VUMPS eps did not fall")
+    if launches != 0:
+        raise RuntimeError("the boundary path launched K1")
+    return launches
+
+
 def main():
     sys.path.insert(0, str(REPO))
     phase_device()
@@ -1682,6 +2011,8 @@ def main():
     timed(phase_tdvp_f64)
     launches_tdvp = timed(phase_tdvp_slice)
     launches_qp = timed(phase_qp_f64) + timed(phase_haldane)
+    timed(phase_boundary_f64)
+    launches_boundary = timed(phase_boundary)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -1689,7 +2020,8 @@ def main():
         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "exact_ms": k1["exact_ms"], "launches_tdvp": launches_tdvp,
-        "launches_qp": launches_qp}]}))
+        "launches_qp": launches_qp,
+        "launches_boundary": launches_boundary}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

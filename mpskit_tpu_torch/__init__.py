@@ -18,26 +18,40 @@ application to finite states and time_evolve. Slice 7 adds
 GradientGrassmann (finite and infinite, and the default refinement of an
 infinite find_groundstate), the quasiparticle states, their environments
 and gauge conversions, the QuasiparticleAnsatz excitations (finite,
-infinite and the momentum dispersion) and FiniteExcited. The package
+infinite and the momentum dispersion) and FiniteExcited. Slice 8 adds the
+statmech boundaries and fitting: the exact host Ritz solve of the dominant
+Arnoldi pair, the small spectra and the fixed-point uniqueness check, the
+classical transfer MPOs, the DenseMPO channel environments and
+expectation value, `leading_boundary` (VUMPS_Boundary, VOMPS,
+GradientGrassmann, MPOHamiltonian rows, MPSMultiline / MPOMultiline), the
+boundary excitations, the multi-row and MPO branches of `changebonds`, and
+`approximate` (FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2). The package
 imports torch and never jax; the JAX package stays the reference the
 tests hold it to."""
 
 from .algorithms import (
-    DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VUMPS, WI, WII, FiniteExcited,
-    GradientGrassmann, OptimalExpand, QuasiparticleAnsatz, RandExpand,
-    SvdCut, TaylorCluster, VUMPSSvdCut, changebonds, entanglement_spectrum,
-    entropy, excitations, expectation_value, find_groundstate,
+    DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VOMPS, VUMPS, WI, WII,
+    FiniteExcited, FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, GradientGrassmann,
+    OptimalExpand, QuasiparticleAnsatz, RandExpand, SvdCut, TaylorCluster,
+    VUMPS_Boundary, VUMPSSvdCut, approximate, changebonds,
+    entanglement_spectrum, entropy, excitations, excitations_boundary,
+    excitations_boundary_multiline, expectation_value, find_groundstate,
     find_groundstate_dmrg, find_groundstate_dmrg2,
     find_groundstate_grassmann, find_groundstate_idmrg1,
-    find_groundstate_idmrg2, find_groundstate_vumps, make_time_mpo,
-    time_evolve, timestep,
+    find_groundstate_idmrg2, find_groundstate_vumps, leading_boundary,
+    make_time_mpo, time_evolve, timestep,
 )
 from .models.hamiltonians import (
     heisenberg_XXX, transverse_field_ising, transverse_field_ising_lattice,
 )
-from .operators.mpo import DenseMPO, MPOHamiltonian
+from .models.statmech import (
+    classical_ising, finite_classical_ising, hard_hexagon, sixvertex,
+)
+from .operators.mpo import DenseMPO, MPOHamiltonian, mpo_to_mps, mps_to_mpo
+from .operators.multiline import MPOMultiline
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
+from .states.multiline import MPSMultiline
 from .states.qp_gauge import (
     finite_left_to_right_gauge, finite_right_to_left_gauge,
     left_to_right_gauge, right_to_left_gauge,

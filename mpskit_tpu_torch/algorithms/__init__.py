@@ -1,8 +1,12 @@
 """Algorithms of the PyTorch port: finite one- and two-site DMRG, VUMPS,
 IDMRG, GradientGrassmann, bond-dimension management, the expectation
 values, the entanglement toolbox, the find_groundstate dispatcher, time
-evolution (TDVP, TDVP2, the evolution MPOs and time_evolve), and the
-excitations (QuasiparticleAnsatz and FiniteExcited)."""
+evolution (TDVP, TDVP2, the evolution MPOs and time_evolve), the
+excitations (QuasiparticleAnsatz and FiniteExcited), the statmech
+boundaries (leading_boundary with VUMPS_Boundary, VOMPS or
+GradientGrassmann) and the fitting of `approximate`."""
+
+from .approximate import FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, approximate
 
 from .changebonds import (
     OptimalExpand, RandExpand, SvdCut, VUMPSSvdCut, changebonds,
@@ -20,8 +24,12 @@ from .grassmann import (
     GradientGrassmann, find_groundstate_grassmann,
     find_groundstate_grassmann_finite,
 )
+from .excitations_statmech import (
+    excitations_boundary, excitations_boundary_multiline,
+)
 from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
     find_groundstate_idmrg2
+from .statmech import VOMPS, VUMPS_Boundary, leading_boundary
 from .tdvp import TDVP, TDVP2, timestep
 from .time_evolve import time_evolve
 from .timeevmpo import WI, WII, TaylorCluster, make_time_mpo

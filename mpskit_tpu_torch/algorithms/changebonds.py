@@ -1,5 +1,7 @@
 """Bond-dimension management (counterpart of
-mpskit_tpu/algorithms/changebonds.py) for FiniteMPS and InfiniteMPS.
+mpskit_tpu/algorithms/changebonds.py) for FiniteMPS, InfiniteMPS,
+MPSMultiline, and for a DenseMPO or MPOMultiline through the InfiniteMPS
+of their site tensors.
 
 Under the static-shape design, cutting is masking (Schmidt values zeroed
 in place, shapes unchanged) and expanding is a re-padding of the stacked
@@ -22,8 +24,12 @@ from ..environments.finite import (
     stack_W,
 )
 from ..environments.infinite_ham import hamiltonian_environments
+from ..environments.infinite_mpo import mpo_environments, stack_O
+from ..operators.mpo import DenseMPO, mpo_to_mps, mps_to_mpo
+from ..operators.multiline import MPOMultiline
 from ..states.finitemps import FiniteMPS, support_mask
 from ..states.infinitemps import InfiniteMPS
+from ..states.multiline import MPSMultiline
 from ..states.quasiparticle import full_gauges
 from ..tensors.ops import (
     TruncationScheme, leftnull, notrunc, rightnull, rightorth, svd_truncated,
@@ -32,10 +38,6 @@ from ..utils.sync import to_host
 from .derivatives import ac2_apply
 from .unionalg import Chainable, ChainedAlg
 
-# containers of the JAX package that the port does not have yet, and the
-# queue-1 item (ROADMAP.md) that brings each
-_NOT_PORTED = {"SU2FiniteMPS": 11, "MPSMultiline": 9, "DenseMPO": 9,
-               "MPOMultiline": 9}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,11 +91,14 @@ def _svdcut_infinite(psi: InfiniteMPS, alg: SvdCut) -> InfiniteMPS:
     return InfiniteMPS.from_A(A)
 
 
-def changebonds(psi, *args):
+def changebonds(psi, *args, device="cuda"):
     """changebonds(psi, alg) or changebonds(psi, H, alg[, envs]).
 
     A trailing `envs` is accepted for signature parity and has no effect:
-    the expanders recompute the environments they need from the state."""
+    the expanders recompute the environments they need from the state. A
+    DenseMPO (or each row of an MPOMultiline) is managed as the InfiniteMPS
+    of its site tensors, made on `device` (the card unless the caller asks
+    for the CPU), and comes back as a host DenseMPO."""
     if len(args) == 1:
         H, alg = None, args[0]
     else:
@@ -102,18 +107,23 @@ def changebonds(psi, *args):
     if isinstance(alg, ChainedAlg):
         # apply each stage in sequence (e.g. OptimalExpand() & SvdCut())
         for stage in alg:
-            psi = changebonds(psi, *((stage,) if H is None else (H, stage)))
+            psi = changebonds(psi, *((stage,) if H is None else (H, stage)),
+                              device=device)
         return psi
 
+    if isinstance(psi, MPSMultiline):
+        return _changebonds_multiline(psi, H, alg)
+    if isinstance(psi, MPOMultiline):
+        return MPOMultiline(tuple(
+            changebonds(r, *((alg,) if H is None else (H, alg)),
+                        device=device) for r in psi.rows))
+    if isinstance(psi, DenseMPO):
+        d = psi.site(0).shape[2]
+        return mps_to_mpo(changebonds(mpo_to_mps(psi, device), alg), d)
     if not isinstance(psi, (FiniteMPS, InfiniteMPS)):
-        name = type(psi).__name__
-        item = _NOT_PORTED.get(name)
-        where = (f"it comes with queue-1 item {item}" if item else
-                 "SU(2)-reduced chains come with queue-1 item 11, "
-                 "multiline states and MPOs with item 9")
         raise NotImplementedError(
-            f"changebonds on a {name} is not ported yet: {where} "
-            "(ROADMAP.md)")
+            f"changebonds on a {type(psi).__name__} is not ported yet: "
+            "SU(2)-reduced chains come with queue-1 item 11 (ROADMAP.md)")
 
     if isinstance(alg, SvdCut):
         if isinstance(psi, FiniteMPS):
@@ -131,6 +141,56 @@ def changebonds(psi, *args):
                 "VUMPSSvdCut needs an InfiniteMPS and the Hamiltonian")
         return _vumpssvd_cut(psi, H, alg)
     raise TypeError(type(alg))
+
+
+def _changebonds_multiline(psi: MPSMultiline, O, alg) -> MPSMultiline:
+    """SvdCut and RandExpand row by row; OptimalExpand grows row r+1 along
+    the row-r two-site derivative in the mixed (ket row r, bra row r+1)
+    environments of O's row r."""
+    R = psi.nrows
+    if isinstance(alg, (SvdCut, RandExpand)):
+        return MPSMultiline(tuple(changebonds(r, alg) for r in psi.rows))
+    if isinstance(alg, OptimalExpand):
+        if O is None:
+            raise ValueError("OptimalExpand needs the transfer MPO")
+        if not isinstance(O, MPOMultiline):
+            O = MPOMultiline.from_mpo(O, R)
+        if O.nrows not in (1, R):
+            raise ValueError(f"an MPOMultiline of {O.nrows} rows on {R}")
+        rows = list(psi.rows)
+        for r in range(R):
+            rows[(r + 1) % R] = _expand_multiline_row(
+                psi.rows[r], O.row(r), psi.rows[(r + 1) % R], alg.dims)
+        return MPSMultiline(tuple(rows))
+    raise TypeError(type(alg))
+
+
+def _expand_multiline_row(below: InfiniteMPS, O, above: InfiniteMPS,
+                          extra: int) -> InfiniteMPS:
+    """`above` (row r+1) grown by `extra` directions: the dominant left
+    singular vectors of the row-r two-site derivative projected on row
+    r+1's tangent null spaces, with a small random block among the new
+    directions."""
+    L, D, d = above.period, above.D, above.physicaldim
+    dtype, device = above.dtype, above.device
+    with matmul_precision():
+        Os = stack_O(O, L, below.dtype, device)
+        envs = mpo_environments(below, Os, psi_bra=above)
+        A = _pad_bond(above.AL, D + extra, (1, 3))
+        for i in range(L):
+            j = (i + 1) % L
+            theta = torch.einsum("lpm,mqr->lpqr", below.AC[i], below.AR[j])
+            h2 = ac2_apply(envs.GLs[i], Os[i], Os[j], envs.GRs[j], theta)
+            VL = leftnull(above.AL[i])
+            VR = rightnull(above.AR[j])
+            M = torch.einsum("lpk,lpqr,mqr->km", VL.conj(), h2, VR.conj())
+            U = svd_truncated(M, min(extra, M.shape[0]), notrunc())[0]
+            A[i, :D, :, D:D + U.shape[1]] = torch.einsum("lpk,ke->lpe", VL,
+                                                         U)
+        mask = torch.zeros(A.shape, dtype=torch.bool, device=device)
+        mask[:, D:, :, D:] = True
+        return InfiniteMPS.from_A(A + _noise(A.shape, 1e-6, dtype, device)
+                                  * mask)
 
 
 def _vumpssvd_cut(psi: InfiniteMPS, H, alg: VUMPSSvdCut) -> InfiniteMPS:

@@ -15,9 +15,10 @@ deflation overlaps of `_solve_qp` stay on the device.
 The JAX package vmaps the dispersion over momenta; here
 `excitations_infinite_batched` is `excitations_infinite`'s host loop over
 the momenta, every solve from the same seeded start vector unless a
-generator is given. The charge-sector (`sector=`), symmetric-state and
-reduced-MPO branches, and the transfer-MPO branch, come with later slices
-and raise NotImplementedError naming their queue-1 item (ROADMAP.md).
+generator is given. A transfer MPO (DenseMPO) goes to
+`excitations_statmech.excitations_boundary`. The charge-sector
+(`sector=`), symmetric-state and reduced-MPO branches come with a later
+slice and raise NotImplementedError naming queue-1 item 11 (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -253,14 +254,23 @@ def excitations_finite(H, alg: QuasiparticleAnsatz, psi: FiniteMPS,
 
 def excitations(H, alg, *args, **kwargs):
     """excitations(H, QuasiparticleAnsatz(), momenta, psi_inf, ...),
-    excitations(H, QuasiparticleAnsatz(), psi_finite, ...) or
-    excitations(H, FiniteExcited(), psi_finite, ...)."""
+    excitations(H, QuasiparticleAnsatz(), psi_finite, ...),
+    excitations(H, FiniteExcited(), psi_finite, ...), or for a transfer
+    MPO excitations(O_dense, QuasiparticleAnsatz(), momenta, psi_boundary,
+    envs=, generator=, krylovdim=, tol=) (`excitations_boundary`: the
+    dominant eigenvalues relative to the boundary's, a CPU tensor)."""
     from .dmrgexcitation import FiniteExcited, excitations_dmrg
 
+    if isinstance(H, DenseMPO) and isinstance(alg, QuasiparticleAnsatz):
+        from .excitations_statmech import excitations_boundary
+
+        return excitations_boundary(
+            H, args[0], args[1],
+            **{k: v for k, v in kwargs.items()
+               if k in ("envs", "generator", "krylovdim", "tol")})
     if isinstance(H, DenseMPO):
-        raise NotImplementedError(
-            "excitations of a DenseMPO (statmech boundaries) come with "
-            "queue-1 item 9 (ROADMAP.md)")
+        raise TypeError("excitations of a transfer MPO (DenseMPO) take "
+                        f"QuasiparticleAnsatz, got {type(alg).__name__}")
     if not isinstance(H, MPOHamiltonian):
         raise NotImplementedError(
             f"excitations of a {type(H).__name__} are not ported yet: "

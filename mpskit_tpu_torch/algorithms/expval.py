@@ -1,6 +1,6 @@
 """Expectation values (counterpart of mpskit_tpu/algorithms/expval.py:
-the finite MPOHamiltonian branch and the infinite MPOHamiltonian and
-one-site-operator branches)."""
+the finite MPOHamiltonian branch and the infinite MPOHamiltonian,
+one-site-operator and DenseMPO branches)."""
 
 from __future__ import annotations
 
@@ -8,11 +8,13 @@ import numpy as np
 import torch
 
 from ..environments.finite import finite_environments, stack_W
-from ..operators.mpo import MPOHamiltonian
+from ..operators.mpo import DenseMPO, MPOHamiltonian
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from .derivatives import ac_apply
-from .expval_infinite import expval_infinite_local, expval_infinite_mpoham
+from .expval_infinite import (
+    expval_infinite_densempo, expval_infinite_local, expval_infinite_mpoham,
+)
 
 
 def _expval_finite_mpoham(psi: FiniteMPS, H: MPOHamiltonian, envs=None):
@@ -29,7 +31,9 @@ def expectation_value(psi, O, *args, envs=None):
     """expectation_value(psi, H) for an MPOHamiltonian: <psi|H|psi> /
     <psi|psi> of a FiniteMPS (0-dim tensor), the per-site energy density
     of an InfiniteMPS ((L,) tensor); expectation_value(psi, (site, O)) for
-    a one-site operator on an InfiniteMPS. Precomputed environments go by
+    a one-site operator on an InfiniteMPS; for a DenseMPO on an
+    InfiniteMPS, the leading transfer eigenvalue per site (a host number,
+    `expval_infinite_densempo`). Precomputed environments go by
     keyword, `envs=`, as in the JAX package. A positional argument after
     the operator (a site range or an int for a ranged energy, a time for a
     MultipliedOperator) and the other combinations come with later
@@ -44,6 +48,8 @@ def expectation_value(psi, O, *args, envs=None):
     if isinstance(psi, InfiniteMPS):
         if isinstance(O, MPOHamiltonian):
             return expval_infinite_mpoham(psi, O, envs)
+        if isinstance(O, DenseMPO):
+            return expval_infinite_densempo(psi, O, envs)
         if isinstance(O, tuple) and len(O) == 2:
             site, op = O
             if np.ndim(op) == 2 and np.shape(op)[0] == psi.physicaldim:
@@ -51,4 +57,5 @@ def expectation_value(psi, O, *args, envs=None):
     raise NotImplementedError(
         f"expectation_value({type(psi).__name__}, {type(O).__name__}) is not "
         "ported yet: finite local operators, operator strings, ranged "
-        "energies and DenseMPO come with queue-1 slice 10 (ROADMAP.md)")
+        "energies and a finite DenseMPO come with queue-1 item 10 "
+        "(ROADMAP.md)")

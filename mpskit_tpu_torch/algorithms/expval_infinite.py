@@ -1,5 +1,6 @@
-"""Infinite-state expectation values (counterpart of the MPOHamiltonian and
-local-operator parts of mpskit_tpu/algorithms/expval_infinite.py)."""
+"""Infinite-state expectation values (counterpart of the MPOHamiltonian,
+local-operator and DenseMPO parts of
+mpskit_tpu/algorithms/expval_infinite.py)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,7 @@ import torch
 
 from ..environments.finite import stack_W
 from ..environments.infinite_ham import hamiltonian_environments, pairing
+from ..environments.infinite_mpo import mpo_environments
 from ..operators.mpo import MPOHamiltonian
 from ..states.infinitemps import InfiniteMPS
 
@@ -35,3 +37,12 @@ def expval_infinite_local(psi: InfiniteMPS, O, site: int):
     O = torch.as_tensor(O, device=AC.device).to(AC.dtype)
     num = torch.einsum("lsr,st,ltr->", AC.conj(), O, AC)
     return num / torch.vdot(AC.reshape(-1), AC.reshape(-1))
+
+
+def expval_infinite_densempo(psi: InfiniteMPS, O, envs=None):
+    """Leading-eigenvalue density of a transfer MPO: lambda_cell^(1/L) of
+    the dominant <psi|O|psi> channel fixed point, a host number (complex
+    for a complex state; the principal root)."""
+    if envs is None:
+        envs = mpo_environments(psi, O)
+    return envs.lambda_cell ** (1.0 / psi.period)

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .operators.mpo import MPOHamiltonian
+from .operators.mpo import DenseMPO, MPOHamiltonian
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
 from .states.quasiparticle import FiniteQP, LeftGaugedQP
@@ -62,3 +62,9 @@ def mpo_from_numpy(W) -> MPOHamiltonian:
     `_analyze` so the structure metadata is derived here. The FSM stays on
     the host and moves to a device on use (`stack_W`)."""
     return MPOHamiltonian._analyze(np.array(W, copy=True))
+
+
+def dense_mpo_from_numpy(Os) -> DenseMPO:
+    """Host DenseMPO from a sequence of (w_l, w_r, d, d) site arrays, e.g.
+    `np.asarray` of a JAX DenseMPO's `Os`."""
+    return DenseMPO(tuple(np.array(o, copy=True) for o in Os))

@@ -4,8 +4,9 @@ mpskit_tpu/operators/mpo.py).
 The FSM is one dense stacked array ``W[i, a, b, s, t]`` (site, left FSM
 level, right FSM level, phys-out, phys-in), built and analysed on the host
 in numpy; `environments.finite.stack_W` moves it to the device on use.
-`DenseMPO` (the evolution operators of `algorithms/timeevmpo.py`) is host
-numpy too.
+`DenseMPO` (the evolution operators of `algorithms/timeevmpo.py`, the
+statmech transfer MPOs of `models/statmech.py`) is host numpy too, with
+its conversions to and from an InfiniteMPS (`mpo_to_mps`, `mps_to_mpo`).
 
 Conventions: upper-triangular FSM, level 0 = "identity to the left",
 level w-1 = "identity to the right"; W[0,0] = W[w-1,w-1] = 1.
@@ -316,3 +317,32 @@ class DenseMPO:
             out.append(np.einsum("abst,cdtu->acbdsu", O1, O2).reshape(
                 O1.shape[0] * O2.shape[0], O1.shape[1] * O2.shape[1], d, d))
         return DenseMPO(tuple(out))
+
+
+def mpo_to_mps(O: DenseMPO, device="cuda"):
+    """The InfiniteMPS of a DenseMPO's site tensors with the two physical
+    legs of W[a, b, s, t] fused into one p = (s, t) leg, gauge-fixed on
+    `device` (the card unless the caller asks for the CPU). Only the state
+    (ray) is kept; `mps_to_mpo` is the inverse."""
+    import torch
+
+    from ..states.infinitemps import InfiniteMPS
+
+    As = []
+    for i in range(O.period):
+        a, b, s, t = O.site(i).shape
+        As.append(np.transpose(O.site(i), (0, 2, 3, 1)).reshape(a, s * t, b))
+    return InfiniteMPS.from_A(torch.from_numpy(np.stack(As)).to(device))
+
+
+def mps_to_mpo(psi, d: int) -> DenseMPO:
+    """The host DenseMPO whose site tensors are psi's left-gauged tensors
+    with the fused physical leg split back into (phys-out, phys-in)."""
+    Os = []
+    for i in range(psi.period):
+        A = psi.AL[i].cpu().resolve_conj().numpy()
+        D1, p, D2 = A.shape
+        assert p == d * d, "physical leg is not a fused d*d MPO leg"
+        Os.append(np.ascontiguousarray(
+            np.transpose(A.reshape(D1, d, d, D2), (0, 3, 1, 2))))
+    return DenseMPO(tuple(Os))

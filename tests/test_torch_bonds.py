@@ -232,11 +232,33 @@ def test_chained_changebonds():
                                        ("MPOMultiline", 9)])
 def test_branches_not_ported_raise(name, item):
     """Each branch of the JAX dispatchers the port lacks raises
-    NotImplementedError naming its queue-1 item; misuse raises the
-    matching error."""
-    state = type(name, (), {})()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        changebonds(state, SvdCut())
+    NotImplementedError naming its queue-1 item; the multi-row and MPO
+    branches, which item 9 brought, return their own container; misuse
+    raises the matching error."""
+    if item == 9:
+        from mpskit_tpu_torch import (
+            DenseMPO, MPOMultiline, MPSMultiline, classical_ising,
+        )
+
+        row = InfiniteMPS.random(1, 2, 6, torch.complex128, "cpu",
+                                 torch.Generator().manual_seed(6))
+        state = {"MPSMultiline": MPSMultiline((row, row)),
+                 "DenseMPO": classical_ising(),
+                 "MPOMultiline": MPOMultiline.from_mpo(classical_ising(), 2)
+                 }[name]
+        out = changebonds(state, SvdCut(truncdim(4)), device="cpu")
+        assert type(out) is type(state)
+        rows = out.rows if name != "DenseMPO" else (out,)
+        for r in rows:
+            if isinstance(r, DenseMPO):
+                assert r.site(0).shape[2:] == (2, 2)
+            else:   # a cut is a mask: at most 4 nonzero Schmidt values
+                S = torch.linalg.svdvals(r.C[0])
+                assert int((S > 1e-12).sum()) <= 4 < r.D
+    else:
+        state = type(name, (), {})()
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            changebonds(state, SvdCut())
     H = transverse_field_ising_lattice(g=1.5)
     fin = FiniteMPS.random(4, 2, 4, torch.float64, "cpu",
                            torch.Generator().manual_seed(6))

@@ -330,3 +330,34 @@ def test_qp_solve_on_card_matches_cpu():
                                rtol=0, atol=1e-8)
     np.testing.assert_allclose(es["cuda"][:, 0].numpy(), [1.0, 5.0],
                                rtol=0, atol=5e-3)
+
+
+@pytest.mark.cuda
+def test_boundary_iteration_on_card_matches_cpu():
+    """One boundary VUMPS iteration of the critical classical Ising MPO at
+    D=16 (complex128) on the card against the same iteration on the CPU
+    from one state: eps, the channel eigenvalue and the Schmidt values to
+    1e-10; the transfer MPO moves to the card on use; no K1 launch."""
+    from mpskit_tpu_torch import (
+        VUMPS_Boundary, classical_ising, expectation_value, leading_boundary,
+    )
+
+    _need_card()
+    O = classical_ising()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    psi = InfiniteMPS.random(1, 2, 16, torch.complex128, "cuda", gen)
+    before = k1.launches
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = InfiniteMPS(*(x.to(dev) for x in (psi.AL, psi.AR, psi.AC,
+                                              psi.C)))
+        out[dev] = leading_boundary(p, O, VUMPS_Boundary(maxiter=1,
+                                                         verbosity=0))
+    assert k1.launches == before
+    (pc, ec, epsc), (ph, eh, epsh) = out["cuda"], out["cpu"]
+    assert pc.C.device.type == "cuda" and ec.GLs.device.type == "cuda"
+    assert abs(epsc - epsh) <= 1e-10
+    assert abs(expectation_value(pc, O, envs=ec)
+               - expectation_value(ph, O, envs=eh)) <= 1e-10
+    sv = [torch.linalg.svdvals(p.C[0]).cpu() for p in (pc, ph)]
+    assert float((sv[0] - sv[1]).abs().max()) <= 1e-10

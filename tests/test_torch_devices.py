@@ -37,7 +37,8 @@ def _no_card():
 
 @pytest.mark.parametrize("entry", ["random", "from_numpy",
                                    "infinite_random", "infinite_from_numpy",
-                                   "finite_qp_from_numpy"])
+                                   "finite_qp_from_numpy", "mpo_to_mps",
+                                   "changebonds_densempo"])
 def test_entry_points_default_to_the_card(entry):
     _no_card()
     # CPU-only torch raises AssertionError ("not compiled with CUDA"), a
@@ -51,6 +52,14 @@ def test_entry_points_default_to_the_card(entry):
             InfiniteMPS.random(1, d, D, torch.float64)
         elif entry == "infinite_from_numpy":
             infinite_mps_from_numpy(*_infinite_arrays())
+        elif entry == "mpo_to_mps":
+            from mpskit_tpu_torch import classical_ising, mpo_to_mps
+
+            mpo_to_mps(classical_ising())
+        elif entry == "changebonds_densempo":
+            from mpskit_tpu_torch import SvdCut, changebonds, classical_ising
+
+            changebonds(classical_ising(), SvdCut())
         else:
             As = _arrays()[0]
             finite_qp_from_numpy(As[:, :, :, :2].sum(1), As, As, As,
@@ -142,3 +151,45 @@ def test_excitations_and_grassmann_stay_on_the_states_device():
                           0.5, ipsi, envs=ienvs)
     assert es.shape == (1, 1) and qps[0][0].Xs.device.type == "cpu"
     assert left_to_right_gauge(qps[0][0]).Xs.device.type == "cpu"
+
+
+def test_boundaries_stay_on_the_states_device():
+    """leading_boundary (VUMPS_Boundary, VOMPS, GradientGrassmann, two
+    rows), the DenseMPO expectation value, the boundary excitations,
+    approximate and the DenseMPO changebonds keep CPU states on the CPU;
+    the transfer MPOs stay host arrays and eigenvalues come back as host
+    numbers or CPU tensors."""
+    from mpskit_tpu_torch import (
+        VOMPS, FitDMRG, FitIDMRG, GradientGrassmann, MPOMultiline,
+        MPSMultiline, QuasiparticleAnsatz, SvdCut, VUMPS_Boundary,
+        approximate, changebonds, classical_ising, excitations,
+        expectation_value, finite_classical_ising, leading_boundary,
+        mpo_to_mps,
+    )
+
+    O = classical_ising()
+    assert isinstance(O.site(0), np.ndarray)
+    gen = torch.Generator().manual_seed(0)
+    psi = InfiniteMPS.random(1, d, D, torch.complex128, "cpu", gen)
+    for alg in (VUMPS_Boundary(maxiter=2, verbosity=0),
+                VOMPS(maxiter=2, verbosity=0),
+                GradientGrassmann(maxiter=2, verbosity=0)):
+        out, envs, _ = leading_boundary(psi, O, alg)
+        assert out.AL.device.type == "cpu" and envs.GLs.device.type == "cpu"
+    assert isinstance(expectation_value(out, O, envs=envs), complex)
+    rows, renvs, _ = leading_boundary(
+        MPSMultiline((psi, psi)), MPOMultiline.from_mpo(O, 2),
+        VUMPS_Boundary(maxiter=1, verbosity=0))
+    assert rows.rows[1].C.device.type == renvs[1].GRs.device.type == "cpu"
+    lams, qps = excitations(O, QuasiparticleAnsatz(), [0.0], out, envs=envs,
+                            tol=1e-4)
+    assert lams.device.type == "cpu" and qps[0].Xs.device.type == "cpu"
+    fit, _, _ = approximate(out, (O, out), FitIDMRG(maxiter=1, verbosity=0))
+    assert fit.AL.device.type == "cpu"
+    fpsi = FiniteMPS.random(L, d, D, torch.complex128, "cpu", gen)
+    ffit, _, _ = approximate(fpsi, (finite_classical_ising(L), fpsi),
+                             FitDMRG(maxiter=1))
+    assert ffit.AC.device.type == "cpu"
+    assert mpo_to_mps(O, "cpu").AL.device.type == "cpu"
+    cut = changebonds(O, SvdCut(), device="cpu")
+    assert isinstance(cut.site(0), np.ndarray)

@@ -383,8 +383,10 @@ def test_unported_branches_raise():
     reduced = type("ReducedMPO", (), {})()
     with pytest.raises(NotImplementedError, match="item 11"):
         excitations(reduced, QuasiparticleAnsatz(), 0.0, psi)
+    # a transfer MPO goes to the boundary excitations, which take
+    # QuasiparticleAnsatz only
     O = DenseMPO.from_array(np.ones((1, 1, 2, 2)))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        excitations(O, QuasiparticleAnsatz(), 0.0, psi)
+    with pytest.raises(TypeError, match="transfer MPO"):
+        excitations(O, FiniteExcited(), 0.0, psi)
     with pytest.raises(TypeError):
         excitations(H, DMRG(), fpsi)
