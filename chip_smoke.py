@@ -137,7 +137,36 @@ Phases, in order; any failure exits non-zero:
      rest, plainly and under torch.profiler (busy time, idle share, the
      ten largest device operations); gates: lambda within 1e-7 relative
      of Onsager's and within 1e-3 of 2.5337, eps falling from iteration
-     5, finite tensors, zero K1 launches.
+     5, finite tensors, zero K1 launches;
+ 17. the measurement surface (`[measure]` lines), float64 unless stated,
+     with each measurement's seconds and host syncs: K1 at leg (a)'s
+     shape (w=4, d=2, D=512: its second fused tier) and on its general
+     path (w=13), eager and in a CUDA graph, against its plain version
+     and its bound; (a) free fermions L=32 (JW MPO, w=4) by float32 DMRG
+     at D=512 as phase 5 runs it (K1 must launch) within 1e-5 relative of
+     the exact energy, a float64 continuation within 1e-9, then against
+     the exact free-fermion state entropy_profile (1e-6 at every bond),
+     string_correlator <c_8^dag c_j> and correlator <n_8 n_j> for j =
+     9..23 (1e-8), a two-site string <c^dag c + h.c.>, the fermion parity
+     as a finite DenseMPO (+1) and variance (below 1e-8); (b) the
+     half-filled Hubbard chain U=4 on a two-site cell (d=4, w=6) at
+     D=256 by VUMPS(tol=1e-8, maxiter=60) from a random state (its
+     iterations 2.. as
+     vumps_iteration_time_hubbard_U4_D256_float64 in a JSON line), the
+     cell-mean energy within 1e-4 of Lieb-Wu's -2.5737293678984039, <n>
+     within 1e-6 of 1, transfer_spectrum, marek_gap and
+     correlation_length with krylovdim 80 (|lambda_1| = 1 to 1e-10,
+     |lambda_2| < 1), variance (below 1e-3),
+     calc_galerkin, E(range(0, 64)) - E(range(0, 32)) = 32 e to 1e-8,
+     <n_0 n_200> within 1e-6 of <n>^2, all again on the CPU from the same
+     state (1e-10 relative) and once under torch.profiler (idle share);
+     (c) exact_diagonalization of the TFIM g=1.5 L=20 in complex128
+     (D=1024, exact_diagonalization_time_tfim_L20_complex128 in a JSON
+     line), E0 within 1e-9 and E1 within 1e-8 of the free-fermion
+     values, and fidelity_susceptibility of the infinite TFIM g=1.5 at
+     D=48 with the transverse-field MPO, Hermitian positive, card
+     against CPU to 1e-8 and within 1e-6 relative of the exact
+     1/(16 g^2 (g^2 - 1)), with its CG steps.
 Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -203,6 +232,29 @@ ONSAGER = float(np.sqrt(2) * np.exp(2 * 0.915965594177219015 / np.pi))
 BOUNDARY_ORACLE, BOUNDARY_ORACLE_TOL = 2.5337, 1e-3
 BOUNDARY_D, BOUNDARY_ITERS, BOUNDARY_REL_TOL = 256, 20, 1e-7
 BOUNDARY_CARD_TOL = 1e-10   # one iteration, card against CPU, complex128
+# phase 17, leg (a): free fermions (the JW chain of models/fermions.py,
+# w=4) at the finite cell's width, against the exact free-fermion state
+FF_L, FF_D, FF_SWEEPS32, FF_SWEEPS64, FF_TOL64 = 32, 512, 8, 12, 1e-12
+FF_E_TOL64 = 1e-9       # absolute, float64 energy
+FF_I, FF_JMAX = 8, 24   # correlators from site 8 to sites 9..23
+FF_TOL_ENTROPY, FF_TOL_CORR, FF_TOL_VAR = 1e-6, 1e-8, 1e-8
+# leg (b): the half-filled Hubbard chain (mu = U/2) on a two-site cell at
+# the infinite cell's width; Lieb-Wu's energy per site at U=4,
+# -4 int_0^inf J0(w) J1(w) / (w (1 + exp(w U / 2))) dw = -0.5737293678984039
+# (scipy quad, error 2e-9), minus mu <n> = 2
+HUB_U, HUB_E_LIEB_WU, HUB_E_TOL = 4.0, -2.5737293678984039, 1e-4
+HUB_D, HUB_VUMPS_ITERS = 256, 60
+HUB_DENSITY_TOL, HUB_NN_TOL, HUB_VAR_TOL = 1e-6, 1e-6, 1e-3
+HUB_RANGE_N, HUB_RANGE_TOL, HUB_CORR_J = 32, 1e-8, 200
+HUB_CARD_TOL = 1e-10    # relative, card against CPU
+# Krylov dimension of the transfer spectra: the correlation length is
+# ~120 sites at D=256, and the default 40 steps left |lambda_1| 2e-10
+# from 1 in one run (H100 80GB HBM3, 700 W)
+HUB_KRYLOVDIM = 80
+# leg (c): ED of the open TFIM at full bond dimension, and the fidelity
+# susceptibility of the infinite TFIM
+ED_L, ED_G, ED_TOL_E0, ED_TOL_E1 = 20, 1.5, 1e-9, 1e-8
+FS_D, FS_TOL, FS_CARD_TOL, FS_EXACT_TOL = 48, 1e-8, 1e-8, 1e-6
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -1987,6 +2039,418 @@ def phase_boundary():
         raise RuntimeError("the boundary path launched K1")
     return launches
 
+def _k1_shape_times(D, d, w, gen):
+    """K1 at (w, d, D) against its plain version: the max abs error, the
+    time per call eager (CUDA events, 50 calls, in turns with the plain
+    version) and in a CUDA graph, and the bound."""
+    import torch
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.kernels.ac_apply import (
+        ac_apply_bf16, ac_apply_bf16_reference,
+    )
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    with matmul_precision():
+        GL, GR = randn(w, D, D) / D, randn(w, D, D) / D
+        W, x = randn(w, w, d, d), randn(D, d, D)
+        y = ac_apply_bf16(GL, W, GR, x)
+        y_plain = ac_apply_bf16_reference(GL, W, GR, x)
+        torch.cuda.synchronize()
+        rel = float((y - y_plain).norm() / y_plain.norm())
+        if not (torch.isfinite(y).all() and rel <= K1_TOL_PLAIN):
+            raise RuntimeError(f"K1 disagrees with its plain version at "
+                               f"w={w} d={d} D={D}")
+        fns = {"ms": lambda: ac_apply_bf16(GL, W, GR, x),
+               "plain_ms": lambda: ac_apply_bf16_reference(GL, W, GR, x)}
+        runs = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            runs[k].append(cuda_time_ms(fns[k], 50))
+        t = {k: sum(v) / len(v) for k, v in runs.items()}
+        t["graph_ms"] = graph_time_ms(fns["ms"], 50)
+    t["max_abs_err"] = float((y - y_plain).abs().max())
+    t["bound_ms"], t["bound_by"] = k1_bound(D, d, w)
+    return t
+
+
+def _measured(rows, leg, name, fn, *args, **kwargs):
+    """fn(*args, **kwargs) with its seconds and host syncs, recorded in
+    rows and printed."""
+    import torch
+    from mpskit_tpu_torch.utils import sync
+
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    dt, syncs = time.perf_counter() - t0, sync.count - c0
+    rows.append((leg, name, dt, syncs))
+    log(f"[measure] {leg}: {name} {dt:.3f} s, {syncs} host syncs")
+    return out
+
+
+def _free_fermion_exact(L: int):
+    """The exact ground state of -sum (c^dag c + h.c.) on L open sites:
+    the correlation matrix C_ij = <c_i^dag c_j> of the filled modes and
+    the entanglement entropy at every bond x = 1..L-1 from the
+    eigenvalues nu of C restricted to [0, x)."""
+    h = -(np.eye(L, k=1) + np.eye(L, k=-1))
+    e, v = np.linalg.eigh(h)
+    occ = v[:, e < 0]
+    C = occ @ occ.T
+    S = []
+    for x in range(1, L):
+        nu = np.clip(np.linalg.eigvalsh(C[:x, :x]), 1e-300, 1 - 1e-16)
+        S.append(float(-np.sum(nu * np.log(nu) + (1 - nu) * np.log1p(-nu))))
+    return C, np.array(S), (-1) ** occ.shape[1]
+
+
+def _measure_free_fermions(rows):
+    """Leg (a): the free-fermion chain L=32 at D=512, float32 DMRG (K1 on
+    its first restarts), a float64 continuation, and the measurements
+    against the exact free-fermion state."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, DenseMPO, FiniteMPS, correlator, entropy_profile,
+        expectation_value, find_groundstate, free_fermions,
+        kitaev_bdg_energy, string_correlator, variance,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    L, D = FF_L, FF_D
+    H = free_fermions(t=1.0, mu=0.0)
+    e_exact = kitaev_bdg_energy(L, 1.0, 0.0, 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    psi = FiniteMPS.random(L, 2, D, torch.float32, "cuda", gen)
+    k1.launches = 0
+    psi, envs, eps32 = _measured(
+        rows, "a", f"float32 DMRG ({FF_SWEEPS32} sweeps)", find_groundstate,
+        psi, H, DMRG(krylovdim=10, eig_maxrestarts=2, cheap_galerkin=True,
+                     maxiter=FF_SWEEPS32, verbosity=0))
+    torch.cuda.synchronize()
+    launches = k1.launches
+    E32 = float(expectation_value(psi, H, envs=envs))
+    rel32 = abs(E32 - e_exact) / abs(e_exact)
+    log(f"[measure] a: free fermions L={L} w={H.odim} D={D} float32: "
+        f"E={E32:.8f}, exact {e_exact:.12f}, rel err {rel32:.3e} (tol "
+        f"{E_TOL_F32}), eps {eps32:.2e}, K1 launches {launches}")
+    if not rel32 <= E_TOL_F32:
+        raise RuntimeError("float32 free-fermion energy misses the exact one")
+    if launches <= 0:
+        raise RuntimeError("leg (a) never launched K1")
+
+    psi = FiniteMPS(psi.ALs.double(), psi.ARs.double(), psi.AC.double(),
+                    psi.center)
+    k1.launches = 0
+    psi, envs, eps64 = _measured(
+        rows, "a", "float64 DMRG continuation", find_groundstate, psi, H,
+        DMRG(tol=FF_TOL64, maxiter=FF_SWEEPS64, verbosity=0))
+    E64 = float(expectation_value(psi, H, envs=envs))
+    log(f"[measure] a: float64 continuation E={E64:.15f}, |dE| "
+        f"{abs(E64 - e_exact):.3e} (tol {FF_E_TOL64}), eps {eps64:.2e}")
+    if not abs(E64 - e_exact) <= FF_E_TOL64:
+        raise RuntimeError("float64 free-fermion energy misses the exact one")
+
+    C, S_exact, parity_exact = _free_fermion_exact(L)
+    c = np.array([[0.0, 1.0], [0.0, 0.0]])
+    cdag, n, Z = c.T, c.T @ c, np.diag([1.0, -1.0])
+    i, js = FF_I, list(range(FF_I + 1, FF_JMAX))
+    S = _measured(rows, "a", "entropy_profile", entropy_profile, psi)
+    sc = _measured(rows, "a", "string_correlator <c_i^dag c_j>",
+                   string_correlator, psi, cdag @ Z, Z, c, i, js)
+    nn = _measured(rows, "a", "correlator <n_i n_j>", correlator, psi, n,
+                   n, i, js)
+    k = L // 2 - 1
+    hop = np.einsum("st,uv->sutv", cdag @ Z, c) + \
+        np.einsum("st,uv->sutv", Z @ c, cdag)
+    bond = _measured(rows, "a", "two-site string <c^dag c + h.c.>",
+                     expectation_value, psi, (k, hop))
+    parity = _measured(rows, "a", "parity (finite DenseMPO)",
+                       expectation_value, psi,
+                       DenseMPO.from_array(Z[None, None], period=L))
+    var = _measured(rows, "a", "variance (H @ H)", variance, psi, H)
+    S, sc, nn = (t.cpu().numpy() for t in (S, sc, nn))
+    errs = {
+        "entropy_profile": (np.abs(S - S_exact).max(), FF_TOL_ENTROPY),
+        "string_correlator": (np.abs(sc - C[i, js]).max(), FF_TOL_CORR),
+        "correlator": (np.abs(nn - (C[i, i] * np.diag(C)[js]
+                                    - C[i, js] ** 2)).max(), FF_TOL_CORR),
+        "two-site string": (abs(complex(bond) - 2 * C[k, k + 1]),
+                            FF_TOL_CORR),
+        "parity": (abs(complex(parity) - parity_exact), FF_TOL_CORR),
+        "variance": (abs(float(var)), FF_TOL_VAR),
+    }
+    log(f"[measure] a: S at the middle bond {S[L // 2 - 1]:.12f} (exact "
+        f"{S_exact[L // 2 - 1]:.12f}); <c_{i}^dag c_{i + 1}> "
+        f"{sc[0].real:.12f} (exact {C[i, i + 1]:.12f}); parity "
+        f"{complex(parity).real:.12f}; variance {float(var):.3e}")
+    for name, (err, tol) in errs.items():
+        log(f"[measure] a: {name} max error {err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise RuntimeError(f"leg (a): {name} misses the exact value")
+    return launches
+
+
+def _hubbard_block(psi, H, n_tot, rows, leg, env_init=None):
+    """Leg (b)'s measurements of one state, each recorded in rows."""
+    from mpskit_tpu_torch import (
+        calc_galerkin, correlation_length, correlator, expectation_value,
+        marek_gap, transfer_spectrum, variance,
+    )
+    from mpskit_tpu_torch.environments.infinite_ham import (
+        hamiltonian_environments,
+    )
+
+    def m(name, fn, *args, **kwargs):
+        return _measured(rows, leg, name, fn, *args, **kwargs)
+
+    n, k = HUB_RANGE_N, HUB_KRYLOVDIM
+    out = {"spectrum": m("transfer_spectrum", transfer_spectrum, psi, num=5,
+                         krylovdim=k),
+           "marek_gap": m("marek_gap", marek_gap, psi, krylovdim=k),
+           "correlation_length": m("correlation_length", correlation_length,
+                                   psi, krylovdim=k)}
+    envs = m("environments", hamiltonian_environments, psi, H,
+             env_init=env_init)
+    out["envs"] = envs
+    out["energy"] = m("expectation_value", expectation_value, psi, H,
+                      envs=envs)
+    out["variance"] = m("variance", variance, psi, H, envs=envs)
+    out["galerkin"] = m("calc_galerkin", calc_galerkin, psi, H, envs=envs)
+    out["E_n"] = m(f"ranged energy range(0, {n})", expectation_value, psi,
+                   H, range(0, n), envs=envs)
+    out["E_2n"] = m(f"ranged energy range(0, {2 * n})", expectation_value,
+                    psi, H, range(0, 2 * n), envs=envs)
+    out["density"] = m("density <n> per site", lambda: [
+        expectation_value(psi, (i, n_tot)) for i in range(psi.period)])
+    out["nn"] = m(f"correlator <n_0 n_{HUB_CORR_J}>", correlator, psi, n_tot,
+                  n_tot, 0, [HUB_CORR_J])
+    return out
+
+
+def _hubbard_numbers(out):
+    """The block's results as host numbers."""
+    e = out["energy"].cpu().numpy()
+    eps, delta = out["marek_gap"]
+    return {"|spectrum|": np.abs(out["spectrum"].cpu().numpy()),
+            "marek_gap": np.array([eps, delta]),
+            "correlation_length": np.array([out["correlation_length"]]),
+            "energy": e, "variance": np.array([float(out["variance"])]),
+            "galerkin": np.array([float(out["galerkin"])]),
+            "E_n": np.array([complex(out["E_n"]).real]),
+            "E_2n": np.array([complex(out["E_2n"]).real]),
+            "density": np.array([complex(x).real for x in out["density"]]),
+            "nn": out["nn"].cpu().numpy().real}
+
+
+def _measure_hubbard(rows):
+    """Leg (b): the half-filled Hubbard chain U=4 on a two-site cell at
+    D=256 in float64: VUMPS from a seeded random state for a fixed number
+    of iterations (its eps stalls near 1e-4 at this width: the spin sector
+    is critical), then the measurements on the card, under
+    torch.profiler, and on the CPU from the same state."""
+    import torch
+    from mpskit_tpu_torch import VUMPS, InfiniteMPS, find_groundstate, hubbard
+    from mpskit_tpu_torch.environments.infinite_ham import InfiniteHamEnv
+    from mpskit_tpu_torch.models.fermions import _spinful_ops
+
+    D = HUB_D
+    H = hubbard(t=1.0, U=HUB_U, mu=HUB_U / 2, period=2)
+    _, _, n_up, n_dn, _ = _spinful_ops()
+    n_tot = n_up + n_dn
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    psi = InfiniteMPS.random(2, 4, D, torch.float64, "cuda", gen)
+    ends = []
+
+    def mark(it, psi, H):
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    ends.append(time.perf_counter())
+    psi, envs, eps = _measured(
+        rows, "b", f"VUMPS D={D} (at most {HUB_VUMPS_ITERS} iterations)",
+        find_groundstate, psi, H,
+        VUMPS(tol=1e-8, maxiter=HUB_VUMPS_ITERS, finalize=mark, verbosity=0))
+    n_it = len(ends) - 1
+    s_it = (ends[-1] - ends[1]) / (n_it - 1)
+    log(f"[measure] b: VUMPS D={D}: {n_it} iterations, eps {eps:.3e}, "
+        f"{s_it:.4f} s/iteration over iterations 2-{n_it}")
+    log(json.dumps({
+        "metric": f"vumps_iteration_time_hubbard_U4_D{D}_float64",
+        "value": s_it, "unit": "s", "iterations": n_it, "eps": eps}))
+
+    card = _hubbard_block(psi, H, n_tot, rows, "b card", env_init=envs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _hubbard_block(psi, H, n_tot, [], "b again", env_init=envs)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    busy, n_dev, _ = _device_busy_ms(
+        lambda: _hubbard_block(psi, H, n_tot, [], "b profiled",
+                               env_init=envs))
+    log(f"[measure] b: the measurement block again {plain:.1f} ms; under "
+        "torch.profiler: " + (
+            f"{n_dev} kernels and copies, busy {busy:.1f} ms, idle share "
+            f"{1 - busy / plain:.1%}" if busy else
+            "no device time in the trace: idle share not measured"))
+
+    psi_cpu = InfiniteMPS(*(t.cpu() for t in (psi.AL, psi.AR, psi.AC,
+                                              psi.C)))
+    env_cpu = InfiniteHamEnv(card["envs"].GLs.cpu(), card["envs"].GRs.cpu(),
+                             card["envs"].e_density.cpu())
+    cpu = _hubbard_block(psi_cpu, H, n_tot, rows, "b CPU", env_init=env_cpu)
+    a, b = _hubbard_numbers(card), _hubbard_numbers(cpu)
+
+    e = float(np.mean(a["energy"]))
+    lam = a["|spectrum|"]
+    n = HUB_RANGE_N
+    ranged = a["E_2n"][0] - a["E_n"][0]
+    dens = a["density"]
+    eps_m, delta_m = a["marek_gap"]
+    log(f"[measure] b: Hubbard U={HUB_U} D={psi.D} float64: e per site "
+        f"{e:.12f} (sites {a['energy'][0]:.12f}, {a['energy'][1]:.12f}), "
+        f"Lieb-Wu {HUB_E_LIEB_WU:.12f}, |de| {abs(e - HUB_E_LIEB_WU):.3e} "
+        f"(tol {HUB_E_TOL}); <n> {dens[0]:.14f}, {dens[1]:.14f}")
+    log(f"[measure] b: |transfer spectrum| {', '.join(f'{x:.12f}' for x in lam)}"
+        f"; marek gap eps {eps_m:.6e} delta {delta_m:.3e}; correlation "
+        f"length {a['correlation_length'][0]:.4f} sites; variance "
+        f"{a['variance'][0]:.3e}; Galerkin {a['galerkin'][0]:.3e}")
+    log(f"[measure] b: E(range(0, {2 * n})) - E(range(0, {n})) "
+        f"{ranged:.12f}, {n} e {n * e:.12f}, diff {abs(ranged - n * e):.3e}"
+        f" (tol {HUB_RANGE_TOL}); <n_0 n_{HUB_CORR_J}> {a['nn'][0]:.14f}, "
+        f"<n_0>^2 {dens[0] ** 2:.14f}")
+    worst = 0.0
+    for key in a:
+        scale = max(np.abs(a[key]).max(), np.abs(b[key]).max(), 1e-300)
+        rel = float(np.abs(a[key] - b[key]).max() / scale)
+        worst = max(worst, rel)
+        log(f"[measure] b: card against CPU, {key}: rel diff {rel:.3e} "
+            f"(tol {HUB_CARD_TOL})")
+    gates = [
+        (abs(e - HUB_E_LIEB_WU) <= HUB_E_TOL, "the energy misses Lieb-Wu"),
+        (np.abs(dens - 1).max() <= HUB_DENSITY_TOL, "the density is not 1"),
+        (abs(lam[0] - 1) <= 1e-10 and lam[1] < 1,
+         "the transfer spectrum is not normalized"),
+        (a["variance"][0] < HUB_VAR_TOL, "the variance is too large"),
+        (abs(ranged - n * e) <= HUB_RANGE_TOL, "the ranged energy is off"),
+        (abs(a["nn"][0] - dens[0] ** 2) <= HUB_NN_TOL,
+         "<n_0 n_j> misses <n>^2"),
+        (worst <= HUB_CARD_TOL, "card and CPU disagree"),
+    ]
+    for ok, why in gates:
+        if not ok:
+            raise RuntimeError(f"leg (b): {why}")
+
+
+def _measure_ed_and_fidelity(rows):
+    """Leg (c): exact diagonalization of the open TFIM L=20 in complex128
+    at D=1024, then the fidelity susceptibility of the infinite TFIM
+    g=1.5 at D=48, on the card and on the CPU."""
+    import torch
+    from mpskit_tpu_torch import (
+        VUMPS, InfiniteMPS, MPOHamiltonian, exact_diagonalization,
+        fidelity_susceptibility, find_groundstate,
+        transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.algorithms import toolbox
+
+    L, g = ED_L, ED_G
+    H = transverse_field_ising_lattice(g=g)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    energies, states = _measured(rows, "c", f"exact_diagonalization L={L}",
+                                 exact_diagonalization, H, L, num=2,
+                                 device="cuda")
+    dt = time.perf_counter() - t0
+    E0, E1 = energies.cpu().tolist()
+    e0 = tfim_open_chain_e0(L, g)
+    sigma = np.linalg.svd(g * np.eye(L) + np.eye(L, k=1), compute_uv=False)
+    e1 = e0 + 2 * sigma.min()
+    log(json.dumps({"metric": f"exact_diagonalization_time_tfim_L{L}"
+                              "_complex128", "value": dt, "unit": "s",
+                    "D": states[0].D}))
+    log(f"[measure] c: ED TFIM g={g} L={L} D={states[0].D} complex128: "
+        f"E0 {E0:.12f} (exact {e0:.12f}, |dE| {abs(E0 - e0):.3e}, tol "
+        f"{ED_TOL_E0}), E1 {E1:.12f} (exact {e1:.12f}, |dE| "
+        f"{abs(E1 - e1):.3e}, tol {ED_TOL_E1})")
+    if not (abs(E0 - e0) <= ED_TOL_E0 and abs(E1 - e1) <= ED_TOL_E1):
+        raise RuntimeError("leg (c): ED misses the free-fermion energies")
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    psi = InfiniteMPS.random(1, 2, FS_D, torch.float64, "cuda", gen)
+    psi, envs, eps = _measured(rows, "c", f"VUMPS TFIM D={FS_D}",
+                               find_groundstate, psi, H,
+                               VUMPS(tol=1e-10, maxiter=200, verbosity=0))
+    V = MPOHamiltonian.from_local(-np.array([[0.0, 1.0], [1.0, 0.0]]))
+    calls = [0]
+    matvec = toolbox._qp_matvec_infinite
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return matvec(*args, **kwargs)
+
+    out = {}
+    for where, p in (("card", psi), ("CPU", InfiniteMPS(*(
+            t.cpu() for t in (psi.AL, psi.AR, psi.AC, psi.C))))):
+        calls[0] = 0
+        with _patched(toolbox, _qp_matvec_infinite=counted):
+            G = _measured(rows, "c", f"fidelity_susceptibility ({where})",
+                          fidelity_susceptibility, p, H, [V], tol=FS_TOL)
+        out[where] = G.cpu().numpy()
+        # one matvec for the initial residual, one per CG step
+        log(f"[measure] c: fidelity susceptibility ({where}) "
+            f"{out[where][0, 0].real:.15f}, {calls[0] - 1} CG steps")
+    G, Gc = out["card"], out["CPU"]
+    rel = float(np.abs(G - Gc).max() / np.abs(Gc).max())
+    herm = float(np.abs(G - G.conj().T).max())
+    # the per-site fidelity susceptibility of the infinite TFIM for g > 1
+    chi = 1 / (16 * g * g * (g * g - 1))
+    rel_chi = abs(G[0, 0] - chi) / chi
+    log(f"[measure] c: D={FS_D} eps {eps:.2e}: Hermitian to {herm:.1e}, "
+        f"smallest eigenvalue {np.linalg.eigvalsh(G).min():.6e}, card "
+        f"against CPU rel diff {rel:.3e} (tol {FS_CARD_TOL}); exact "
+        f"1/(16 g^2 (g^2 - 1)) = {chi:.15f}, rel err {rel_chi:.3e} (tol "
+        f"{FS_EXACT_TOL})")
+    if not (herm <= 1e-12 * np.abs(G).max()
+            and np.linalg.eigvalsh(G).min() > 0):
+        raise RuntimeError("leg (c): the fidelity susceptibility is not "
+                           "Hermitian positive")
+    if not rel <= FS_CARD_TOL:
+        raise RuntimeError("leg (c): card and CPU fidelity disagree")
+    if not rel_chi <= FS_EXACT_TOL:
+        raise RuntimeError("leg (c): the fidelity susceptibility misses the "
+                           "exact one")
+
+
+def phase_measure():
+    """Phase 17: the measurement surface on three ground states with exact
+    oracles, and K1 at leg (a)'s shape (w=4) and on its general path."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    k1_times = {}
+    for tag, (D, d, w) in (("w4", (512, 2, 4)), ("general_w13",
+                                                  (512, 2, 13))):
+        t = _k1_shape_times(D, d, w, gen)
+        k1_times[tag] = t
+        log(f"[measure] K1 D={D} d={d} w={w}: {t['ms']:.4f} ms per call "
+            f"(plain {t['plain_ms']:.4f} ms), {t['graph_ms']:.4f} ms in a "
+            f"CUDA graph, max abs err vs plain {t['max_abs_err']:.3e}, "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}): "
+            f"{t['bound_ms'] / t['ms']:.1%} of it per call")
+    rows = []
+    launches = _measure_free_fermions(rows)
+    _measure_hubbard(rows)
+    _measure_ed_and_fidelity(rows)
+    for leg in sorted({r[0] for r in rows}):
+        mine = [r for r in rows if r[0] == leg]
+        log(f"[measure] {leg}: {sum(r[2] for r in mine):.1f} s and "
+            f"{sum(r[3] for r in mine)} host syncs in {len(mine)} measured "
+            "calls")
+    return launches, k1_times
+
 
 def main():
     sys.path.insert(0, str(REPO))
@@ -2013,6 +2477,7 @@ def main():
     launches_qp = timed(phase_qp_f64) + timed(phase_haldane)
     timed(phase_boundary_f64)
     launches_boundary = timed(phase_boundary)
+    launches_measure, k1_more = timed(phase_measure)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -2021,7 +2486,18 @@ def main():
         "bound_by": k1["bound_by"], "library_ms": k1["library_ms"],
         "exact_ms": k1["exact_ms"], "launches_tdvp": launches_tdvp,
         "launches_qp": launches_qp,
-        "launches_boundary": launches_boundary}]}))
+        "launches_boundary": launches_boundary,
+        "launches_measure": launches_measure,
+        "w4_ms": k1_more["w4"]["ms"],
+        "w4_graph_ms": k1_more["w4"]["graph_ms"],
+        "w4_plain_ms": k1_more["w4"]["plain_ms"],
+        "w4_max_abs_err": k1_more["w4"]["max_abs_err"],
+        "w4_bound_ms": k1_more["w4"]["bound_ms"],
+        "general_w13_ms": k1_more["general_w13"]["ms"],
+        "general_w13_graph_ms": k1_more["general_w13"]["graph_ms"],
+        "general_w13_plain_ms": k1_more["general_w13"]["plain_ms"],
+        "general_w13_max_abs_err": k1_more["general_w13"]["max_abs_err"],
+        "general_w13_bound_ms": k1_more["general_w13"]["bound_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

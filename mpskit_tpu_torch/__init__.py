@@ -25,24 +25,44 @@ classical transfer MPOs, the DenseMPO channel environments and
 expectation value, `leading_boundary` (VUMPS_Boundary, VOMPS,
 GradientGrassmann, MPOHamiltonian rows, MPSMultiline / MPOMultiline), the
 boundary excitations, the multi-row and MPO branches of `changebonds`, and
-`approximate` (FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2). The package
+`approximate` (FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2). Slice 9 adds the
+measurements and the remaining models: transfer spectra and correlation
+lengths, the energy variance and the Galerkin residual, entropy profiles,
+finite and infinite local, string, ranged and DenseMPO expectation values,
+two-point and string correlators, exact diagonalization, periodic
+boundary conditions, the fidelity susceptibility (on a conjugate-gradient
+solve), the rest of the MPOHamiltonian algebra (`from_fsm`, `-`, `@`,
+`repeat`, `conj`, `remove_orphans`, `add_physical_charge`), the spin and
+fermion models, and `FiniteMPS.from_dense`, `+` and `*`. The package
 imports torch and never jax; the JAX package stays the reference the
 tests hold it to."""
 
+from . import models
 from .algorithms import (
     DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VOMPS, VUMPS, WI, WII,
     FiniteExcited, FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, GradientGrassmann,
     OptimalExpand, QuasiparticleAnsatz, RandExpand, SvdCut, TaylorCluster,
-    VUMPS_Boundary, VUMPSSvdCut, approximate, changebonds,
-    entanglement_spectrum, entropy, excitations, excitations_boundary,
-    excitations_boundary_multiline, expectation_value, find_groundstate,
-    find_groundstate_dmrg, find_groundstate_dmrg2,
-    find_groundstate_grassmann, find_groundstate_idmrg1,
-    find_groundstate_idmrg2, find_groundstate_vumps, leading_boundary,
-    make_time_mpo, time_evolve, timestep,
+    VUMPS_Boundary, VUMPSSvdCut, approximate, calc_galerkin, changebonds,
+    correlation_length, correlator, entanglement_spectrum, entropy,
+    entropy_profile, exact_diagonalization, excitations,
+    excitations_boundary, excitations_boundary_multiline, expectation_value,
+    fidelity_susceptibility, find_groundstate, find_groundstate_dmrg,
+    find_groundstate_dmrg2, find_groundstate_grassmann,
+    find_groundstate_idmrg1, find_groundstate_idmrg2, find_groundstate_vumps,
+    infinite_temperature, leading_boundary, make_time_mpo, marek_gap,
+    periodic_boundary_conditions, periodic_boundary_conditions_densempo,
+    string_correlator, time_evolve, timestep, transfer_spectrum, variance,
 )
-from .models.hamiltonians import (
-    heisenberg_XXX, transverse_field_ising, transverse_field_ising_lattice,
+from .linalg.arnoldi import dominant_eigs
+from .linalg.expm import expm_multiply
+from .linalg.gmres import linsolve, linsolve_cg
+from .linalg.lanczos import eigsh_smallest, lanczos_groundstate
+from .models import (
+    bilinear_biquadratic_model, bose_hubbard, free_fermions, heisenberg_XXX,
+    heisenberg_XXZ, heisenberg_XYZ, hubbard, kitaev_bdg_energy, kitaev_chain,
+    quantum_clock, quantum_potts, transverse_field_ising,
+    transverse_field_ising_lattice, transverse_field_ising_parity,
+    xx_chain_with_field, xy_model,
 )
 from .models.statmech import (
     classical_ising, finite_classical_ising, hard_hexagon, sixvertex,
@@ -60,6 +80,6 @@ from .states.quasiparticle import (
     FiniteQP, FiniteQPRight, LeftGaugedQP, RightGaugedQP, qp_to_finitemps,
 )
 from .tensors.ops import (
-    TruncationScheme, leftnull, leftorth, lq_pos, notrunc, qr_pos, rightnull,
-    rightorth, svd_truncated, truncbelow, truncdim, truncerr,
+    TruncationScheme, isometry, leftnull, leftorth, lq_pos, notrunc, qr_pos,
+    rightnull, rightorth, svd_truncated, truncbelow, truncdim, truncerr,
 )

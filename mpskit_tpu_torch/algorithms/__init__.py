@@ -4,7 +4,9 @@ values, the entanglement toolbox, the find_groundstate dispatcher, time
 evolution (TDVP, TDVP2, the evolution MPOs and time_evolve), the
 excitations (QuasiparticleAnsatz and FiniteExcited), the statmech
 boundaries (leading_boundary with VUMPS_Boundary, VOMPS or
-GradientGrassmann) and the fitting of `approximate`."""
+GradientGrassmann), the fitting of `approximate`, and the measurements:
+correlators, transfer spectra, variance, exact diagonalization, periodic
+boundary conditions and the fidelity susceptibility."""
 
 from .approximate import FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, approximate
 
@@ -18,7 +20,8 @@ from .excitations import (
     QuasiparticleAnsatz, excitations, excitations_finite,
     excitations_infinite, excitations_infinite_batched,
 )
-from .expval import expectation_value
+from .correlators import correlator, string_correlator
+from .expval import expectation_value, infinite_temperature
 from .find_groundstate import find_groundstate
 from .grassmann import (
     GradientGrassmann, find_groundstate_grassmann,
@@ -33,6 +36,11 @@ from .statmech import VOMPS, VUMPS_Boundary, leading_boundary
 from .tdvp import TDVP, TDVP2, timestep
 from .time_evolve import time_evolve
 from .timeevmpo import WI, WII, TaylorCluster, make_time_mpo
-from .toolbox import entanglement_spectrum, entropy
+from .toolbox import (
+    calc_galerkin, correlation_length, entanglement_spectrum, entropy,
+    entropy_profile, exact_diagonalization, fidelity_susceptibility,
+    marek_gap, periodic_boundary_conditions,
+    periodic_boundary_conditions_densempo, transfer_spectrum, variance,
+)
 from .unionalg import ChainedAlg, UnionAlg
 from .vumps import VUMPS, find_groundstate_vumps

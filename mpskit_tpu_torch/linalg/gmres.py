@@ -1,5 +1,6 @@
 """Restarted adaptive GMRES (counterpart of mpskit_tpu/linalg/gmres.py):
-the geometric-series environment solves of the infinite path.
+the geometric-series environment solves of the infinite path; and the
+conjugate gradient `linsolve_cg` of `fidelity_susceptibility`.
 
 The JAX package runs the Arnoldi cycle as a `lax.while_loop` whose exit
 tests read the Givens-rotated least-squares residual on the device. Here
@@ -174,3 +175,52 @@ def linsolve_info(matvec: Callable, b, x0=None, a0=1.0, a1=1.0, tol=1e-12,
     x, relres, _ = gmres_restarted(op, b, x0, tol, restart, maxiter,
                                    stall_exit=stall_exit)
     return x, relres
+
+
+def _leaves(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]
+
+
+def _like(x, leaves):
+    return leaves if isinstance(x, (list, tuple)) else leaves[0]
+
+
+def _tree_inner(x, y):
+    return sum(torch.vdot(a.reshape(-1), b.reshape(-1))
+               for a, b in zip(_leaves(x), _leaves(y)))
+
+
+def _tree_axpy(x, y, alpha):
+    """x + alpha * y over a tensor or a list of tensors."""
+    return _like(x, [a + alpha * b for a, b in zip(_leaves(x), _leaves(y))])
+
+
+def linsolve_cg(matvec: Callable, b, x0=None, tol: float = 1e-10,
+                maxiter: int = 200):
+    """Conjugate gradient for a Hermitian positive (semi)definite operator
+    on a tensor or a list of tensors (the QP tangent vectors of
+    `fidelity_susceptibility`, whose operator itself runs GMRES
+    environment solves). Stops once ||r|| <= tol * max(||b||, 1e-30) or
+    after `maxiter` steps, the JAX package's rule; the host loop reads ||r||
+    once per step. Returns x."""
+    if x0 is None:
+        x0 = _like(b, [torch.zeros_like(a) for a in _leaves(b)])
+    bnorm = torch.sqrt(_tree_inner(b, b).real)
+    x = x0
+    r = _tree_axpy(b, matvec(x0), -1.0)
+    p = r
+    rs = _tree_inner(r, r)
+    k = 0
+    while k < maxiter:
+        rnorm, bn = to_host(torch.sqrt(rs.real), bnorm)
+        if rnorm <= tol * max(bn, 1e-30):
+            break
+        Ap = matvec(p)
+        alpha = rs / _tree_inner(p, Ap)
+        x = _tree_axpy(x, p, alpha)
+        r = _tree_axpy(r, Ap, -alpha)
+        rs_new = _tree_inner(r, r)
+        p = _tree_axpy(r, p, rs_new / rs)
+        rs = rs_new
+        k += 1
+    return x

@@ -201,3 +201,35 @@ def eigsh_smallest(matvec: Callable, v0, m: int = 30, maxrestarts: int = 100,
         lam = float(evals[0])
         it += 1
     return EigshResult(lam, x, resid, it, resid <= tol)
+
+
+def tridiag_smallest(alpha, beta, nvalid: int, m: int):
+    """Smallest eigenpair of the nvalid-masked symmetric tridiagonal Ritz
+    matrix, invalid slots decoupled with the sentinel as in `_tridiag`.
+    Returns (lam, s): lam a host float, s the (m,) eigenvector as a tensor
+    of alpha's dtype and device (a numpy alpha gives a float64 CPU tensor),
+    zero on the invalid slots, its sign fixed so that its entries sum to a
+    positive number (the sign the JAX package's inverse iteration from a
+    constant vector gives).
+
+    The JAX package solves it on the device by Sturm bisection and inverse
+    iteration (no LAPACK call inside its loops); here the m x m matrix is
+    solved by float64 `torch.linalg.eigh` on the host, as `eigsh_smallest`
+    solves its Ritz problem (ROADMAP.md, deliberate differences)."""
+    a = torch.as_tensor(alpha)
+    b = torch.as_tensor(beta)
+    sentinel = _sentinel(a.dtype)
+    T = _tridiag(a.detach().cpu().double().numpy()[:m],
+                 b.detach().cpu().double().numpy()[:m], int(nvalid), sentinel)
+    evals, evecs = torch.linalg.eigh(torch.from_numpy(T))
+    s = evecs[:, 0] * (torch.arange(m) < nvalid)
+    if float(s.sum()) < 0:
+        s = -s
+    return float(evals[0]), s.to(dtype=a.dtype, device=a.device)
+
+
+def lanczos_groundstate(matvec: Callable, v0, m: int = 30,
+                        maxrestarts: int = 100, tol: float = 1e-12):
+    """(eigenvalue, eigenvector) of `eigsh_smallest`."""
+    res = eigsh_smallest(matvec, v0, m, maxrestarts, tol)
+    return res.eigenvalue, res.eigenvector

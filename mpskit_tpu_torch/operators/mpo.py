@@ -15,6 +15,7 @@ level w-1 = "identity to the right"; W[0,0] = W[w-1,w-1] = 1.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Tuple
 
 import numpy as np
@@ -68,6 +69,10 @@ class MPOHamiltonian:
     nonzero_mask: Tuple[Tuple[bool, ...], ...]  # (w, w), any-site union
     diag_class: Tuple[int, ...]                 # per level, product over cell
     diag_scalar: Tuple[complex, ...]            # scalar value for DIAG_SCALAR
+    # per-site auxiliary abelian charges fused onto the physical legs (set
+    # by add_physical_charge; their consumers come with the symmetric
+    # states, queue-1 item 11)
+    aux_charges: Tuple[int, ...] = ()
 
     @property
     def period(self) -> int:
@@ -168,6 +173,16 @@ class MPOHamiltonian:
                 W[0, offsets[-1] + jj, w - 1] = tensors[-1][jj, :, :, 0]
         return MPOHamiltonian._analyze(np.tile(W, (period, 1, 1, 1, 1)))
 
+    @staticmethod
+    def from_fsm(entries: dict, w: int, d: int, period: int = 1,
+                 dtype=np.complex128) -> "MPOHamiltonian":
+        """From a dict {(site, a, b): matrix or scalar}; a scalar means
+        scalar * identity."""
+        W = np.zeros((period, w, w, d, d), dtype)
+        for (i, a, b), v in entries.items():
+            W[i, a, b] = v * np.eye(d) if np.isscalar(v) else np.asarray(v)
+        return MPOHamiltonian._analyze(W)
+
     def __add__(self, other):
         if np.isscalar(other):
             # per-site energy shift on the (0, end) block
@@ -214,6 +229,76 @@ class MPOHamiltonian:
         return MPOHamiltonian._analyze(Wn)
 
     __rmul__ = __mul__
+
+    def __sub__(self, other):
+        return self + (other * (-1.0) if isinstance(other, MPOHamiltonian)
+                       else -other)
+
+    def __matmul__(self, other: "MPOHamiltonian") -> "MPOHamiltonian":
+        """MPO product H1 @ H2 (H2 applied first): the FSM tensor product
+        with fused levels (self's level major), not re-compressed, so
+        that its numbers are exactly the products of the two FSMs'."""
+        if (self.period != other.period
+                or self.physicaldim != other.physicaldim):
+            raise ValueError("H1 @ H2 needs equal periods and physical "
+                             "dimensions")
+        L, w1, _, d, _ = self.W.shape
+        w2 = other.odim
+        Wn = np.einsum("iabst,icdtu->iacbdsu", self.W, other.W).reshape(
+            L, w1 * w2, w1 * w2, d, d)
+        return MPOHamiltonian._analyze(Wn)
+
+    def repeat(self, n: int) -> "MPOHamiltonian":
+        """The unit cell tiled n times."""
+        return MPOHamiltonian._analyze(np.tile(self.W, (n, 1, 1, 1, 1)))
+
+    def conj(self) -> "MPOHamiltonian":
+        """The Hermitian conjugate: each W[a, b] block conjugate-transposed."""
+        return MPOHamiltonian._analyze(
+            np.conj(np.transpose(self.W, (0, 1, 2, 4, 3))))
+
+    def remove_orphans(self) -> "MPOHamiltonian":
+        """Dead-branch elimination: zero, until nothing changes, the FSM
+        levels that are dead starts (an all-zero row at a site kills the
+        column that feeds it at the previous site) or dead ends (an
+        all-zero column kills the row it feeds at the next site), then
+        drop the levels that are dead at every site."""
+        W = np.array(self.W)
+        tol = 1e-14
+        while True:
+            L, w = W.shape[0], W.shape[1]
+            dead_start = np.ones(w, bool)
+            dead_end = np.ones(w, bool)
+            for loc in range(L):
+                for i in range(w):
+                    if np.max(np.abs(W[loc, i, :])) <= tol:
+                        W[(loc - 1) % L, :, i] = 0.0
+                    else:
+                        dead_start[i] = False
+                    if np.max(np.abs(W[loc, :, i])) <= tol:
+                        W[(loc + 1) % L, i, :] = 0.0
+                    else:
+                        dead_end[i] = False
+            removable = dead_start | dead_end
+            if not removable.any():
+                break
+            keep = np.nonzero(~removable)[0]
+            W = W[:, keep][:, :, keep]
+        return MPOHamiltonian._analyze(W)
+
+    def add_physical_charge(self, charges) -> "MPOHamiltonian":
+        """Fuse a one-dimensional abelian auxiliary charge onto the
+        physical leg of each site. Every auxiliary space is
+        one-dimensional, so the FSM numbers stay; the cell grows to the
+        least common multiple of the two periods and `aux_charges` records
+        the charge of each site, for the symmetric-state constructors."""
+        charges = tuple(int(c) for c in charges)
+        L, Lc = self.period, len(charges)
+        period = L * Lc // math.gcd(L, Lc)
+        out = MPOHamiltonian._analyze(
+            np.tile(self.W, (period // L, 1, 1, 1, 1)))
+        return dataclasses.replace(
+            out, aux_charges=tuple(charges[i % Lc] for i in range(period)))
 
     def to_matrix(self, L: int) -> np.ndarray:
         """Full d^L x d^L Hamiltonian matrix for exact-diagonalization

@@ -91,6 +91,33 @@ class FiniteMPS:
         return FiniteMPS(torch.zeros_like(ARs), ARs, AC, 0)
 
     @staticmethod
+    def from_dense(vec, d: int, D: int, dtype=None,
+                   device="cuda") -> "FiniteMPS":
+        """A FiniteMPS from a dense state vector of length d^L: an SVD chain
+        on the host (numpy, construction time) truncated to the physical
+        bond ranks capped at D, padded to the static D and canonicalized
+        on `device` (the card unless the caller asks for the CPU). `dtype`
+        is a numpy dtype (None keeps the vector's)."""
+        vec = np.asarray(vec)
+        if dtype is not None:
+            vec = vec.astype(dtype)
+        n = vec.size
+        L = int(round(np.log(n) / np.log(d)))
+        if d ** L != n:
+            raise ValueError(f"vector length {n} is not a power of d={d}")
+        dims = physical_bond_dims(L, d, D)
+        As = np.zeros((L, D, d, D), vec.dtype)
+        carry, kprev = vec.reshape(1, n), 1
+        for i in range(L - 1):
+            U, S, Vh = np.linalg.svd(carry.reshape(kprev * d, -1),
+                                     full_matrices=False)
+            k = min(int(dims[i + 1]), S.shape[0])
+            As[i, :kprev, :, :k] = U[:, :k].reshape(kprev, d, k)
+            carry, kprev = (S[:k, None] * Vh[:k]).reshape(k, -1), k
+        As[L - 1, :kprev, :, :1] = carry.reshape(kprev, d, 1)
+        return FiniteMPS.from_tensors(torch.from_numpy(As).to(device))
+
+    @staticmethod
     def random(L: int, d: int, D: int, dtype=torch.complex128,
                device="cuda", generator: torch.Generator = None) -> "FiniteMPS":
         """Random finite MPS with exactly-zero padding outside the physical
@@ -139,6 +166,36 @@ class FiniteMPS:
         """C to the right of the center site: AC = AL . C."""
         _, C = leftorth(self.AC)
         return C
+
+    def __add__(self, other: "FiniteMPS") -> "FiniteMPS":
+        """State addition by the direct sum of the virtual bonds:
+        block-diagonal bulk tensors, the two boundary row and column blocks
+        joined on the padded index 0, re-gauged (not normalized). The
+        result has bond dimension D1 + D2."""
+        L, d = self.length, self.physicaldim
+        if other.length != L or other.physicaldim != d:
+            raise ValueError("adding states of different lengths or "
+                             "physical dimensions")
+        D1, Dn = self.D, self.D + other.D
+        a = self.move_center(0)
+        b = other.move_center(0)
+        dt = torch.promote_types(self.dtype, other.dtype)
+        out = torch.zeros((L, Dn, d, Dn), dtype=dt, device=self.device)
+        out[0, 0, :, :D1] = a.AC[0]
+        out[0, 0, :, D1:] = b.AC[0]
+        out[1:, :D1, :, :D1] = a.ARs[1:]
+        out[1:, D1:, :, D1:] = b.ARs[1:]
+        if L > 1:
+            # right boundary: fold the second block's boundary column (its
+            # index 0, global D1) onto the first's
+            out[L - 1, :, :, 0] += out[L - 1, :, :, D1]
+            out[L - 1, :, :, D1] = 0
+        return FiniteMPS.from_tensors(out, normalize=False)
+
+    def __mul__(self, a):
+        return dataclasses.replace(self, AC=self.AC * a)
+
+    __rmul__ = __mul__
 
     def dot(self, other: "FiniteMPS"):
         """<self | other> (0-dim tensor); the two states may have different

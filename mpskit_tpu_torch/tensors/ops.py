@@ -192,6 +192,12 @@ def svd_truncated(M, Dmax: int, trunc: TruncationScheme = TruncationScheme()):
             Vh * maskf[:, None].to(Vh.dtype), err)
 
 
+def isometry(m: int, n: int, dtype=torch.complex128, device="cuda"):
+    """The (m, n) isometry embedding C^n into C^m (n <= m), on the card
+    unless `device` says otherwise."""
+    return torch.eye(m, n, dtype=dtype, device=device)
+
+
 def safe_xlogx(x):
     """x * log(x) with 0 log 0 = 0."""
     pos = x > 0

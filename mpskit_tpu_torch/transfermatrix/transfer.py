@@ -35,3 +35,24 @@ def transfer_right_mpo(GR, W, A_ket, A_bra):
     t = torch.einsum("ytn,bmn->bytm", A_ket, GR)
     t = torch.einsum("bytm,abst->aysm", t, W)
     return torch.einsum("xsm,aysm->axy", A_bra.conj(), t)
+
+
+def mps_transfer_matvec_left(As_ket, As_bra):
+    """v -> v . T for the product transfer matrix of a unit cell: the left
+    action, a host loop through the stacked site tensors left to right."""
+    def mv(v):
+        for Ak, Ab in zip(As_ket, As_bra):
+            v = transfer_left(v, Ak, Ab)
+        return v
+
+    return mv
+
+
+def mps_transfer_matvec_right(As_ket, As_bra):
+    """T . v, the right action: the same loop from the last site back."""
+    def mv(v):
+        for i in range(len(As_ket) - 1, -1, -1):
+            v = transfer_right(v, As_ket[i], As_bra[i])
+        return v
+
+    return mv

@@ -361,3 +361,48 @@ def test_boundary_iteration_on_card_matches_cpu():
                - expectation_value(ph, O, envs=eh)) <= 1e-10
     sv = [torch.linalg.svdvals(p.C[0]).cpu() for p in (pc, ph)]
     assert float((sv[0] - sv[1]).abs().max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_measurements_on_card_match_cpu():
+    """The measurement surface on the card by default: FiniteMPS.from_dense
+    and exact_diagonalization build there, and on one Hubbard (U=4, mu=2)
+    two-site state at D=16 (float64) the transfer spectrum (magnitudes),
+    the variance, the ranged energy and <n_0 n_20> equal the CPU values
+    to 1e-10 relative; no K1 launch."""
+    from mpskit_tpu_torch import (
+        correlator, exact_diagonalization, hubbard, transfer_spectrum,
+        variance,
+    )
+    from mpskit_tpu_torch.models.fermions import _spinful_ops
+
+    _need_card()
+    before = k1.launches
+    assert FiniteMPS.from_dense(np.ones(2 ** 6) / 8, 2, 8).device.type \
+        == "cuda"
+    H = transverse_field_ising_lattice(g=1.5)
+    es, states = exact_diagonalization(H, 8, num=2)
+    assert es.device.type == "cuda" and states[0].AC.device.type == "cuda"
+    sigma = np.linalg.svd(1.5 * np.eye(8) + np.eye(8, k=1),
+                          compute_uv=False)
+    np.testing.assert_allclose(es.cpu().numpy(),
+                               [-sigma.sum(), -sigma.sum() + 2 * sigma.min()],
+                               rtol=0, atol=1e-9)
+    Hh = hubbard(t=1.0, U=4.0, mu=2.0, period=2)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    psi = InfiniteMPS.random(2, 4, 16, torch.float64, "cuda", gen)
+    psi, _, _ = find_groundstate(psi, Hh, VUMPS(maxiter=10, verbosity=0))
+    _, _, n_up, n_dn, _ = _spinful_ops()
+    n = n_up + n_dn
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = InfiniteMPS(*(x.to(dev) for x in (psi.AL, psi.AR, psi.AC,
+                                              psi.C)))
+        out[dev] = [transfer_spectrum(p).abs(), variance(p, Hh),
+                    expectation_value(p, Hh, range(0, 10)),
+                    correlator(p, n, n, 0, [20])]
+    assert out["cuda"][0].device.type == "cuda"
+    for a, b in zip(out["cuda"], out["cpu"]):
+        a, b = a.cpu(), b
+        assert float((a - b).abs().max()) <= 1e-10 * float(b.abs().max())
+    assert k1.launches == before

@@ -38,7 +38,8 @@ def _no_card():
 @pytest.mark.parametrize("entry", ["random", "from_numpy",
                                    "infinite_random", "infinite_from_numpy",
                                    "finite_qp_from_numpy", "mpo_to_mps",
-                                   "changebonds_densempo"])
+                                   "changebonds_densempo", "from_dense",
+                                   "exact_diagonalization", "isometry"])
 def test_entry_points_default_to_the_card(entry):
     _no_card()
     # CPU-only torch raises AssertionError ("not compiled with CUDA"), a
@@ -60,6 +61,16 @@ def test_entry_points_default_to_the_card(entry):
             from mpskit_tpu_torch import SvdCut, changebonds, classical_ising
 
             changebonds(classical_ising(), SvdCut())
+        elif entry == "from_dense":
+            FiniteMPS.from_dense(np.ones(2 ** L), d, D)
+        elif entry == "exact_diagonalization":
+            from mpskit_tpu_torch import exact_diagonalization
+
+            exact_diagonalization(transverse_field_ising_lattice(), L)
+        elif entry == "isometry":
+            from mpskit_tpu_torch import isometry
+
+            isometry(3, 2)
         else:
             As = _arrays()[0]
             finite_qp_from_numpy(As[:, :, :, :2].sum(1), As, As, As,
@@ -193,3 +204,36 @@ def test_boundaries_stay_on_the_states_device():
     assert mpo_to_mps(O, "cpu").AL.device.type == "cpu"
     cut = changebonds(O, SvdCut(), device="cpu")
     assert isinstance(cut.site(0), np.ndarray)
+
+
+def test_measurements_stay_on_the_states_device():
+    """FiniteMPS.from_dense and exact_diagonalization build on the CPU
+    when asked; transfer_spectrum, the correlators, the variance and the
+    fidelity susceptibility return tensors on the state's device, and the
+    models stay host arrays."""
+    from mpskit_tpu_torch import (
+        VUMPS, correlator, exact_diagonalization, fidelity_susceptibility,
+        find_groundstate, hubbard, transfer_spectrum, variance,
+    )
+
+    psi = FiniteMPS.from_dense(np.ones(2 ** L) / 2 ** (L / 2), d, D,
+                               device="cpu")
+    assert psi.device.type == "cpu" and abs(float(psi.norm()) - 1) < 1e-12
+    H = transverse_field_ising_lattice(g=1.5)
+    es, states = exact_diagonalization(H, L, num=2, device="cpu")
+    assert es.device.type == "cpu" and states[1].AC.device.type == "cpu"
+    assert variance(states[0], H).device.type == "cpu"
+    assert isinstance(hubbard(U=4.0).W, np.ndarray)
+    ipsi = InfiniteMPS.random(1, d, D, torch.float64, "cpu",
+                              torch.Generator().manual_seed(3))
+    ipsi, envs, _ = find_groundstate(ipsi, H, VUMPS(maxiter=20, verbosity=0))
+    lams = transfer_spectrum(ipsi, num=3)
+    assert lams.device.type == "cpu" and lams.dtype == torch.complex128
+    Z = np.diag([1.0, -1.0])
+    assert correlator(ipsi, Z, Z, 0, [1, 2]).device.type == "cpu"
+    X = np.array([[0.0, 1.0], [1.0, 0.0]])
+    from mpskit_tpu_torch import MPOHamiltonian
+
+    G = fidelity_susceptibility(ipsi, H, [MPOHamiltonian.from_local(-X)],
+                                envs=envs, tol=1e-6)
+    assert G.device.type == "cpu" and G.shape == (1, 1)

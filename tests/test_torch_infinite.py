@@ -404,10 +404,10 @@ def test_find_groundstate_infinite_dispatch(monkeypatch):
 def test_expectation_value_takes_envs_by_keyword():
     """F1: the JAX signature (psi, O, *args, envs=None). A random
     InfiniteMPS (period 1, D=4, complex128, JAX PRNGKey(1)) with
-    `transverse_field_ising(g=1.3)`: a site range after the operator, a ranged energy in the JAX
-    package (0.50408), raises NotImplementedError here until ranged
-    energies are ported, and so does an int; envs passed by keyword give
-    the density that the environments give."""
+    `transverse_field_ising(g=1.3)`: a site range after the operator is
+    the ranged energy, as in the JAX package (0.50408), and so is an int
+    (to 1e-12 of the JAX values); envs passed by keyword give the density
+    that the environments give."""
     Hj = jham.transverse_field_ising(g=1.3)
     Ht = mpo_from_numpy(np.asarray(Hj.W))
     pj = jimps.InfiniteMPS.random(jax.random.PRNGKey(1), 1, 2, 4)
@@ -417,8 +417,9 @@ def test_expectation_value_takes_envs_by_keyword():
     assert abs(float(jnp.real(jexpval(pj, Hj, range(0, 4)))) - 0.50408) \
         <= 1e-5
     for arg in (range(0, 4), 2):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            expectation_value(pt, Ht, arg)
+        np.testing.assert_allclose(_np(expectation_value(pt, Ht, arg)),
+                                   np.asarray(jexpval(pj, Hj, arg)), rtol=0,
+                                   atol=1e-12)
     envs = tinf.hamiltonian_environments(pt, Ht)
     e_kw = _np(expectation_value(pt, Ht, envs=envs))
     np.testing.assert_allclose(e_kw, _np(tinf.hamiltonian_environments(
