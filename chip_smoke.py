@@ -166,7 +166,34 @@ Phases, in order; any failure exits non-zero:
      values, and fidelity_susceptibility of the infinite TFIM g=1.5 at
      D=48 with the transverse-field MPO, Hermitian positive, card
      against CPU to 1e-8 and within 1e-6 relative of the exact
-     1/(16 g^2 (g^2 - 1)), with its CG steps.
+     1/(16 g^2 (g^2 - 1)), with its CG steps;
+ 18. windows, lazy sums, dynamical DMRG and thermal states (`[window]`
+     lines), with every leg's seconds: K1 at the window's shape (D=256,
+     w=3, d=2) eager and in a CUDA graph against its plain version and
+     its bound; (a) VUMPS of the infinite TFIM g=1.5 at D=256 in float32
+     (60 iterations), then find_groundstate with DMRG(krylovdim=10,
+     eig_maxrestarts=2, cheap_galerkin=True, tol=1e-6, maxiter=12) on a
+     window of L=32 at D=256 from a seeded full-rank random window, with
+     per-sweep times and host syncs,
+     window_dmrg_sweep_time_tfim_L32_D256_float32 (sweeps 2..) in a JSON
+     line and K1's launches (launches_window, > 0); gates: <X_i> and
+     <Z_i Z_i+1> within 1e-5 of the infinite values, the energy within
+     1e-5 relative of the from_infinite window's, grow(1, 1) then
+     shrink(1, 1) with a deviation below 1e-5 and <X> unchanged to 1e-6;
+     (b) the co-evolving window TDVP of H(t) = H_zz + (1.5 - 0.6 t) H_x
+     as Window(LazySum) in complex64 from (a)'s state, 10 steps of dt=0.05
+     with TDVP(expalg_m=20), window_tdvp_step_time_tfim_ramp_L32_D256_
+     complex64 (steps 2-10) in a JSON line with syncs per step, the
+     frozen-boundary run's error printed beside; gates: the centre <X>
+     and <ZZ> within 1e-4 of the infinite TDVP of the same sum at every
+     step, the norm within 1e-5 of 1, no K1 launch; (c) propagator in
+     complex128: the ground-state pole at L=32 D=64 within 1e-9 relative
+     of 1/(0.5 + 0.3i), NaiveInvert (1e-8) and Jeckelmann (1e-6) at L=10
+     D=32 against np.linalg.solve, card against CPU 1e-10; (d)
+     thermal_state at L=32 beta=1 dbeta=0.025 Dmax=128 (g=1.2) within
+     5e-3 relative of the free-fermion Gibbs energy, at L=8 Dmax=24 card
+     against CPU 1e-10; (e) save_state / load_state of (a)'s window and
+     infinite state, bit for bit on the card.
 Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -255,6 +282,23 @@ HUB_KRYLOVDIM = 80
 # susceptibility of the infinite TFIM
 ED_L, ED_G, ED_TOL_E0, ED_TOL_E1 = 20, 1.5, 1e-9, 1e-8
 FS_D, FS_TOL, FS_CARD_TOL, FS_EXACT_TOL = 48, 1e-8, 1e-8, 1e-6
+# phase 18: windows, lazy sums, dynamical DMRG and thermal states; every
+# model is the TFIM H = -sum ZZ - g sum X. Leg (a): window DMRG of the
+# infinite g=1.5 ground state (VUMPS at the infinite cell's D=256, float32)
+WIN_L, WIN_D, WIN_G, WIN_SWEEPS, WIN_TOL = 32, 256, 1.5, 12, 1e-5
+WIN_VUMPS_ITERS = 60
+# leg (b): the co-evolving window TDVP of the field ramp H(t) = H_zz +
+# (1.5 - 0.6 t) H_x in complex64 against the infinite TDVP of the same sum
+RAMP_STEPS, RAMP_DT, RAMP_M, RAMP_TOL, RAMP_NORM_TOL = 10, 0.05, 20, 1e-4, 1e-5
+# leg (c): dynamical DMRG in complex128, the ground-state pole at L=32 D=64
+# and a random state at L=10 D=32 against the dense solve
+DD_L, DD_D, DD_POLE_TOL = 32, 64, 1e-9
+DD_DENSE_L, DD_DENSE_D, DD_Z = 10, 32, 0.7 + 0.4j
+DD_NAIVE_TOL, DD_JECK_TOL, DD_CARD_TOL = 1e-8, 1e-6, 1e-10
+# leg (d): the thermal purification at g=1.2 against the free-fermion Gibbs
+# energy (the JAX test's 5e-3), and card against CPU at L=8 Dmax=24
+TH_L, TH_G, TH_BETA, TH_DBETA, TH_DMAX, TH_TOL = 32, 1.2, 1.0, 0.025, 128, 5e-3
+TH_CARD_L, TH_CARD_DMAX, TH_CARD_TOL = 8, 24, 1e-10
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -263,6 +307,15 @@ def tfim_open_chain_e0(L: int, g: float) -> float:
     fermions)."""
     A = g * np.eye(L) + np.diag(np.ones(L - 1), 1)
     return -float(np.linalg.svd(A, compute_uv=False).sum())
+
+
+def tfim_open_chain_thermal_energy(L: int, g: float, beta: float) -> float:
+    """Gibbs energy Tr(H e^{-beta H}) / Tr(e^{-beta H}) of the same open
+    chain: -sum sigma_k tanh(beta sigma_k) over the singular values sigma_k
+    of g*I + superdiag(1) (free fermions of energy 2 sigma_k)."""
+    A = g * np.eye(L) + np.diag(np.ones(L - 1), 1)
+    sigma = np.linalg.svd(A, compute_uv=False)
+    return -float(np.sum(sigma * np.tanh(beta * sigma)))
 
 
 def tfim_density(g: float) -> float:
@@ -2424,6 +2477,332 @@ def _measure_ed_and_fidelity(rows):
                            "exact one")
 
 
+def _window_local(psi, ops):
+    """Real parts of <op> at every site (one-site op) or bond (two-site op)
+    of a window, as numpy arrays."""
+    from mpskit_tpu_torch import expectation_value
+
+    out = []
+    for op in ops:
+        k = 1 if op.ndim == 2 else 2
+        out.append(np.array([complex(expectation_value(psi, (i, op))).real
+                             for i in range(psi.length - k + 1)]))
+    return out
+
+
+def _window_dmrg():
+    """Leg (a): VUMPS of the infinite TFIM g=1.5 at D=256 in float32, then
+    window DMRG of L=32 at D=256 in float32 from a seeded random window
+    (full-rank random tensors, far from the answer), through find_groundstate,
+    with K1 on the first restarts."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, VUMPS, FiniteMPS, InfiniteMPS, WindowMPS, expectation_value,
+        find_groundstate, transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+
+    L, D, d = WIN_L, WIN_D, 2
+    H = transverse_field_ising_lattice(g=WIN_G)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    t0 = time.perf_counter()
+    psi_inf = InfiniteMPS.random(1, d, D, torch.float32, "cuda", gen)
+    psi_inf, _, eps_inf = find_groundstate(psi_inf, H, VUMPS(
+        tol=1e-8, krylovdim=10, eig_maxrestarts=2, gauge_tol=1e-8,
+        maxiter=WIN_VUMPS_ITERS, verbosity=0))
+    e_inf = float(expectation_value(psi_inf, H)[0])
+    log(f"[window] a: VUMPS TFIM g={WIN_G} D={D} float32: e {e_inf:.8f} "
+        f"(exact {tfim_density(WIN_G):.8f}), eps {eps_inf:.2e}, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    As = torch.randn((L, D, d, D), generator=gen, device="cuda")
+    win = WindowMPS(psi_inf, FiniteMPS.from_tensors(As), psi_inf)
+    marks = []
+
+    def mark(it, psi, H):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), sync.count))
+
+    torch.cuda.synchronize()
+    k1.launches = 0
+    sync.count = 0
+    marks.append((time.perf_counter(), 0))
+    win, _, eps = find_groundstate(win, H, DMRG(
+        krylovdim=10, eig_maxrestarts=2, cheap_galerkin=True, tol=1e-6,
+        maxiter=WIN_SWEEPS, finalize=mark, verbosity=0))
+    torch.cuda.synchronize()
+    launches = k1.launches
+    times = [marks[k][0] - marks[k - 1][0] for k in range(1, len(marks))]
+    syncs = [marks[k][1] - marks[k - 1][1] for k in range(1, len(marks))]
+    for k, (t, c) in enumerate(zip(times, syncs), 1):
+        log(f"[window] a: sweep {k}: {t:.3f} s, {c} host syncs")
+    later = times[1:] or times
+    log(json.dumps({
+        "metric": f"window_dmrg_sweep_time_tfim_L{L}_D{D}_float32",
+        "value": sum(later) / len(later), "unit": "s", "sweeps": len(times),
+        "host_syncs_per_sweep": sum(syncs[1:] or syncs) / len(later),
+        "eps": eps}))
+    log(f"[window] a: {len(times)} sweeps, eps {eps:.2e}, K1 launches in "
+        f"this leg: {launches}")
+
+    X = np.array([[0.0, 1.0], [1.0, 0.0]])
+    ZZ = np.einsum("st,uv->sutv", np.diag([1.0, -1.0]), np.diag([1.0, -1.0]))
+    x_inf = complex(expectation_value(psi_inf, (0, X))).real
+    zz_inf = complex(expectation_value(psi_inf, (0, ZZ))).real
+    x, zz = _window_local(win, (X, ZZ))
+    E = float(expectation_value(win, H))
+    E_ref = float(expectation_value(WindowMPS.from_infinite(
+        psi_inf, L, device="cuda"), H))
+    grown, dev = win.grow(1, 1).shrink(1, 1)
+    x_back = _window_local(grown, (X,))[0]
+    errs = {"<X_i>": (np.abs(x - x_inf).max(), WIN_TOL),
+            "<Z_i Z_i+1>": (np.abs(zz - zz_inf).max(), WIN_TOL),
+            "energy (relative)": (abs(E - E_ref) / abs(E_ref), WIN_TOL),
+            "grow/shrink deviation": (float(dev), WIN_TOL),
+            "<X_i> after grow/shrink": (np.abs(x_back - x).max(), 1e-6)}
+    log(f"[window] a: infinite <X> {x_inf:.8f}, <ZZ> {zz_inf:.8f}; window "
+        f"energy {E:.6f}, from_infinite window {E_ref:.6f}")
+    for name, (err, tol) in errs.items():
+        log(f"[window] a: {name} max error {err:.3e} (tol {tol})")
+        if not err <= tol:
+            raise RuntimeError(f"leg (a): {name} misses its reference")
+    if not (torch.isfinite(win.window.AC).all()
+            and win.window.ALs.shape == (L, D, d, D)):
+        raise RuntimeError("leg (a): the window is not finite or misshapen")
+    if launches <= 0:
+        raise RuntimeError("leg (a): window DMRG never launched K1")
+    return psi_inf, win, launches
+
+
+def _window_ramp(psi_inf):
+    """Leg (b): the co-evolving window TDVP of H(t) = H_zz + f(t) H_x,
+    f(t) = 1.5 - 0.6 t, under Window(LazySum) in complex64, against the
+    infinite TDVP of the same LazySum step by step; then the frozen
+    boundaries (a plain LazySum) for comparison, printed only."""
+    import torch
+    from mpskit_tpu_torch import (
+        TDVP, InfiniteMPS, LazySum, MPOHamiltonian, TimedOperator, Window,
+        WindowMPS, expectation_value, timestep,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+
+    X = np.array([[0.0, 1.0], [1.0, 0.0]])
+    Zm = np.diag([1.0, -1.0])
+    ZZ = np.einsum("st,uv->sutv", Zm, Zm)
+    Hs = LazySum([MPOHamiltonian.from_local(-ZZ),
+                  TimedOperator(MPOHamiltonian.from_local(-X),
+                                lambda t: 1.5 - 0.6 * t)])
+    psi = InfiniteMPS(*(t.to(torch.complex64) for t in (
+        psi_inf.AL, psi_inf.AR, psi_inf.AC, psi_inf.C)))
+    L, c, dt = WIN_L, WIN_L // 2, RAMP_DT
+    # the environment GMRES floor of complex64 at D=256 (~4e-4) is above
+    # the warning threshold: quiet, the gates judge the result
+    alg = TDVP(expalg_m=RAMP_M, verbosity=0)
+
+    def centre(w):
+        return [complex(expectation_value(w, (c, op))).real for op in (X, ZZ)]
+
+    def oracle(p):
+        return [complex(expectation_value(p, (0, op))).real for op in (X, ZZ)]
+
+    win = WindowMPS.from_infinite(psi, L, device="cuda")
+    frozen = win
+    inf, ienvs, wenvs = psi, None, None
+    times, syncs, worst, ref = [], [], 0.0, []
+    k1.launches = 0
+    for k in range(RAMP_STEPS):
+        t = k * dt
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), sync.count
+        win, wenvs = timestep(win, Window(Hs), t, dt, alg, envs=wenvs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        syncs.append(sync.count - c0)
+        inf, ienvs = timestep(inf, Hs, t, dt, alg, envs=ienvs)
+        got, want = centre(win), oracle(inf)
+        ref.append(want)
+        err = max(abs(a - b) for a, b in zip(got, want))
+        norm = float(win.window.norm())
+        worst = max(worst, err)
+        log(f"[window] b: step {k + 1} t={t + dt:.2f}: {times[-1]:.3f} s, "
+            f"{syncs[-1]} host syncs; centre <X> {got[0]:.7f} <ZZ> "
+            f"{got[1]:.7f}, infinite {want[0]:.7f} {want[1]:.7f}, |diff| "
+            f"{err:.2e} (tol {RAMP_TOL}), norm - 1 {norm - 1:.1e}")
+        if not err <= RAMP_TOL:
+            raise RuntimeError("leg (b): the window centre leaves the "
+                               "infinite evolution")
+        if not abs(norm - 1) <= RAMP_NORM_TOL:
+            raise RuntimeError("leg (b): the window norm drifts")
+    launches = k1.launches
+    later = times[1:]
+    log(json.dumps({
+        "metric": f"window_tdvp_step_time_tfim_ramp_L{L}_D{psi.D}_complex64",
+        "value": sum(later) / len(later), "unit": "s", "steps": len(times),
+        "host_syncs_per_step": sum(syncs[1:]) / len(later)}))
+    for k in range(RAMP_STEPS):
+        frozen, _ = timestep(frozen, Hs, k * dt, dt, alg)
+    err_frozen = max(abs(a - b) for a, b in zip(centre(frozen), ref[-1]))
+    log(f"[window] b: after {RAMP_STEPS} steps the centre's error is "
+        f"{worst:.2e} at worst with co-evolving boundaries, {err_frozen:.2e} "
+        "with frozen ones (printed, not gated); K1 launches in this leg: "
+        f"{launches}")
+    if launches != 0:
+        raise RuntimeError("leg (b): complex64 TDVP launched K1")
+
+
+def _dense_vector(psi):
+    p = psi.move_center(0)
+    v = p.AC[:1].cpu().numpy()
+    for i in range(1, psi.length):
+        v = np.einsum("...m,mpr->...pr", v, p.ARs[i].cpu().numpy())
+    return v[..., :1].reshape(-1)
+
+
+def _ddmrg():
+    """Leg (c): propagator in complex128, the ground-state pole at L=32
+    D=64 and a random state at L=10 D=32 against the dense solve, on the
+    card and on the CPU."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, DynamicalDMRG, FiniteMPS, Jeckelmann, NaiveInvert,
+        find_groundstate, propagator, transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.utils import sync
+
+    H = transverse_field_ising_lattice(g=1.5)
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    psi = FiniteMPS.random(DD_L, 2, DD_D, torch.float64, "cuda", gen)
+    psi, _, _ = find_groundstate(psi, H, DMRG(tol=1e-12, maxiter=30,
+                                              verbosity=0))
+    E0 = tfim_open_chain_e0(DD_L, 1.5)
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    G, _ = propagator(psi, E0 + 0.5 + 0.3j, H, device="cuda")
+    torch.cuda.synchronize()
+    want = 1 / (0.5 + 0.3j)
+    rel = abs(complex(G) - want) / abs(want)
+    log(f"[window] c: pole L={DD_L} D={DD_D}: G {complex(G):.12f}, "
+        f"1/(0.5+0.3i) {want:.12f}, rel err {rel:.3e} (tol {DD_POLE_TOL}); "
+        f"{time.perf_counter() - t0:.2f} s, {sync.count - c0} host syncs")
+    if not rel <= DD_POLE_TOL:
+        raise RuntimeError("leg (c): the propagator misses the pole")
+
+    Ld = DD_DENSE_L
+    psi0 = FiniteMPS.random(Ld, 2, DD_DENSE_D, torch.complex128, "cuda", gen)
+    v = _dense_vector(psi0)
+    G_ex = np.vdot(v, np.linalg.solve(DD_Z * np.eye(2 ** Ld)
+                                      - H.to_matrix(Ld), v))
+    for name, alg, tol in (
+            ("NaiveInvert", DynamicalDMRG(NaiveInvert(), tol=1e-9,
+                                          maxiter=60), DD_NAIVE_TOL),
+            ("Jeckelmann", DynamicalDMRG(Jeckelmann(), tol=1e-9, maxiter=60,
+                                         linsolve_tol=1e-11), DD_JECK_TOL)):
+        out = {}
+        for where in ("cuda", "cpu"):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), sync.count
+            out[where] = complex(propagator(psi0, DD_Z, H, alg,
+                                            device=where)[0])
+            torch.cuda.synchronize()
+            log(f"[window] c: {name} L={Ld} D={DD_DENSE_D} on {where}: G "
+                f"{out[where]:.12f} in {time.perf_counter() - t0:.2f} s, "
+                f"{sync.count - c0} host syncs")
+        err, card = abs(out["cuda"] - G_ex), abs(out["cuda"] - out["cpu"])
+        log(f"[window] c: {name}: dense {G_ex:.12f}, |diff| {err:.3e} (tol "
+            f"{tol}), card against CPU {card:.3e} (tol {DD_CARD_TOL})")
+        if not (err <= tol and card <= DD_CARD_TOL):
+            raise RuntimeError(f"leg (c): {name} misses its references")
+
+
+def _thermal():
+    """Leg (d): the thermal purification at beta=1 of the open TFIM g=1.2
+    at L=32 Dmax=128 in complex128 against the free-fermion Gibbs energy,
+    and at L=8 Dmax=24 on the card against the CPU."""
+    import torch
+    from mpskit_tpu_torch import (
+        thermal_expectation, thermal_state, transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.utils import sync
+
+    H = transverse_field_ising_lattice(g=TH_G)
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    psi = thermal_state(H, TH_L, TH_BETA, TH_DBETA, TH_DMAX, device="cuda")
+    e = float(thermal_expectation(psi, H))
+    torch.cuda.synchronize()
+    e_ex = tfim_open_chain_thermal_energy(TH_L, TH_G, TH_BETA)
+    rel = abs(e - e_ex) / abs(e_ex)
+    log(f"[window] d: thermal_state L={TH_L} beta={TH_BETA} dbeta="
+        f"{TH_DBETA} Dmax={TH_DMAX}: E {e:.10f}, free fermions {e_ex:.10f}, "
+        f"rel err {rel:.3e} (tol {TH_TOL}); {time.perf_counter() - t0:.2f} s,"
+        f" {sync.count - c0} host syncs; ground energy "
+        f"{tfim_open_chain_e0(TH_L, TH_G):.6f}")
+    if not rel <= TH_TOL:
+        raise RuntimeError("leg (d): the thermal energy misses the Gibbs one")
+    es = [float(thermal_expectation(thermal_state(
+        H, TH_CARD_L, TH_BETA, TH_DBETA, TH_CARD_DMAX, device=where), H))
+        for where in ("cuda", "cpu")]
+    diff = abs(es[0] - es[1]) / abs(es[1])
+    log(f"[window] d: L={TH_CARD_L} Dmax={TH_CARD_DMAX}: card {es[0]:.14f}, "
+        f"CPU {es[1]:.14f}, rel diff {diff:.3e} (tol {TH_CARD_TOL})")
+    if not diff <= TH_CARD_TOL:
+        raise RuntimeError("leg (d): card and CPU thermal energies differ")
+
+
+def _checkpoints(psi_inf, win):
+    """Leg (e): save_state / load_state of leg (a)'s window and infinite
+    state through a temporary directory, bit for bit on the card."""
+    import tempfile
+
+    import torch
+    from mpskit_tpu_torch import load_state, save_state
+    from mpskit_tpu_torch.utils.serialize import _leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, state in (("window", win), ("infinite", psi_inf)):
+            path = str(Path(tmp) / f"{name}.npz")
+            save_state(path, state)
+            back = load_state(path, device="cuda")
+            same = all(a.is_cuda and torch.equal(a, b) for a, b in
+                       zip(_leaves(back), _leaves(state)))
+            log(f"[window] e: {name} checkpoint of {len(_leaves(state))} "
+                f"tensors reloaded on the card bit for bit: {same}")
+            if not same or type(back) is not type(state):
+                raise RuntimeError(f"leg (e): the {name} checkpoint changed")
+
+
+def phase_windows():
+    """Phase 18: K1 at the window's shape (w=3, d=2, D=256), then legs
+    (a)-(e). Returns (window K1 launches, K1's times at that shape)."""
+    import torch
+
+    t = _k1_shape_times(WIN_D, 2, 3, torch.Generator(device="cuda")
+                        .manual_seed(47))
+    log(f"[window] K1 D={WIN_D} d=2 w=3: {t['ms']:.4f} ms per call (plain "
+        f"{t['plain_ms']:.4f} ms), {t['graph_ms']:.4f} ms in a CUDA graph, "
+        f"max abs err vs plain {t['max_abs_err']:.3e}, bound "
+        f"{t['bound_ms']:.5f} ms ({t['bound_by']}): "
+        f"{t['bound_ms'] / t['ms']:.1%} of it per call")
+    legs = {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        legs[name] = time.perf_counter() - t0
+        return out
+
+    psi_inf, win, launches = leg("a", _window_dmrg)
+    leg("b", _window_ramp, psi_inf)
+    leg("c", _ddmrg)
+    leg("d", _thermal)
+    leg("e", _checkpoints, psi_inf, win)
+    log("[window] seconds per leg: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()))
+    return launches, t
+
+
 def phase_measure():
     """Phase 17: the measurement surface on three ground states with exact
     oracles, and K1 at leg (a)'s shape (w=4) and on its general path."""
@@ -2478,6 +2857,7 @@ def main():
     timed(phase_boundary_f64)
     launches_boundary = timed(phase_boundary)
     launches_measure, k1_more = timed(phase_measure)
+    launches_window, k1_window = timed(phase_windows)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -2497,7 +2877,13 @@ def main():
         "general_w13_graph_ms": k1_more["general_w13"]["graph_ms"],
         "general_w13_plain_ms": k1_more["general_w13"]["plain_ms"],
         "general_w13_max_abs_err": k1_more["general_w13"]["max_abs_err"],
-        "general_w13_bound_ms": k1_more["general_w13"]["bound_ms"]}]}))
+        "general_w13_bound_ms": k1_more["general_w13"]["bound_ms"],
+        "launches_window": launches_window,
+        "window_D256_ms": k1_window["ms"],
+        "window_D256_graph_ms": k1_window["graph_ms"],
+        "window_D256_plain_ms": k1_window["plain_ms"],
+        "window_D256_max_abs_err": k1_window["max_abs_err"],
+        "window_D256_bound_ms": k1_window["bound_ms"]}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

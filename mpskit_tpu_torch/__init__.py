@@ -33,25 +33,42 @@ two-point and string correlators, exact diagonalization, periodic
 boundary conditions, the fidelity susceptibility (on a conjugate-gradient
 solve), the rest of the MPOHamiltonian algebra (`from_fsm`, `-`, `@`,
 `repeat`, `conj`, `remove_orphans`, `add_physical_charge`), the spin and
-fermion models, and `FiniteMPS.from_dense`, `+` and `*`. The package
-imports torch and never jax; the JAX package stays the reference the
+fermion models, and `FiniteMPS.from_dense`, `+` and `*`. Slice 10 adds
+windows, lazy sums and projections: WindowMPS (from_infinite, grow,
+shrink, boundary environments), the Window, LazySum, MultipliedOperator
+(TimedOperator, UntimedOperator), ProjectionOperator and
+LinearCombination operators with their branches of find_groundstate
+(window DMRG), timestep (frozen and co-evolving window TDVP, time-dependent
+sums at the midpoint), expectation_value, variance and the entanglement
+spectrum, the per-summand LazySum environments, dynamical DMRG
+(`propagator` with NaiveInvert and Jeckelmann), thermal purifications,
+`save_state` / `load_state` in the JAX package's .npz layout, and
+PeriodicArray. The package imports torch and never jax; the JAX package stays the reference the
 tests hold it to."""
 
 from . import models
 from .algorithms import (
     DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VOMPS, VUMPS, WI, WII,
-    FiniteExcited, FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, GradientGrassmann,
-    OptimalExpand, QuasiparticleAnsatz, RandExpand, SvdCut, TaylorCluster,
+    DynamicalDMRG, FiniteExcited, FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2,
+    GradientGrassmann, Jeckelmann, NaiveInvert, OptimalExpand,
+    QuasiparticleAnsatz, RandExpand, SvdCut, TaylorCluster,
     VUMPS_Boundary, VUMPSSvdCut, approximate, calc_galerkin, changebonds,
     correlation_length, correlator, entanglement_spectrum, entropy,
     entropy_profile, exact_diagonalization, excitations,
     excitations_boundary, excitations_boundary_multiline, expectation_value,
     fidelity_susceptibility, find_groundstate, find_groundstate_dmrg,
-    find_groundstate_dmrg2, find_groundstate_grassmann,
-    find_groundstate_idmrg1, find_groundstate_idmrg2, find_groundstate_vumps,
-    infinite_temperature, leading_boundary, make_time_mpo, marek_gap,
-    periodic_boundary_conditions, periodic_boundary_conditions_densempo,
-    string_correlator, time_evolve, timestep, transfer_spectrum, variance,
+    find_groundstate_dmrg2, find_groundstate_dmrg_window,
+    find_groundstate_grassmann, find_groundstate_idmrg1,
+    find_groundstate_idmrg2, find_groundstate_vumps, infinite_temperature,
+    leading_boundary, lift_densempo, lift_hamiltonian, make_time_mpo,
+    marek_gap, periodic_boundary_conditions,
+    periodic_boundary_conditions_densempo, propagator, purification_mps,
+    string_correlator, thermal_expectation, thermal_state, time_evolve,
+    timestep, transfer_spectrum, variance,
+)
+from .environments.lazysum_env import (
+    MultipleEnvironments, lazysum_ac_apply, lazysum_c_apply,
+    lazysum_environments,
 )
 from .linalg.arnoldi import dominant_eigs
 from .linalg.expm import expm_multiply
@@ -68,10 +85,16 @@ from .models.statmech import (
     classical_ising, finite_classical_ising, hard_hexagon, sixvertex,
 )
 from .operators.mpo import DenseMPO, MPOHamiltonian, mpo_to_mps, mps_to_mpo
+from .operators.lazysum import (
+    LazySum, MultipliedOperator, TimedOperator, UntimedOperator,
+)
 from .operators.multiline import MPOMultiline
+from .operators.projection import LinearCombination, ProjectionOperator
+from .operators.window import Window
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
 from .states.multiline import MPSMultiline
+from .states.windowmps import WindowMPS
 from .states.qp_gauge import (
     finite_left_to_right_gauge, finite_right_to_left_gauge,
     left_to_right_gauge, right_to_left_gauge,
@@ -83,3 +106,5 @@ from .tensors.ops import (
     TruncationScheme, isometry, leftnull, leftorth, lq_pos, notrunc, qr_pos,
     rightnull, rightorth, svd_truncated, truncbelow, truncdim, truncerr,
 )
+from .utils.periodic import PeriodicArray, PeriodicVector
+from .utils.serialize import load_state, save_state

@@ -6,14 +6,15 @@ excitations (QuasiparticleAnsatz and FiniteExcited), the statmech
 boundaries (leading_boundary with VUMPS_Boundary, VOMPS or
 GradientGrassmann), the fitting of `approximate`, and the measurements:
 correlators, transfer spectra, variance, exact diagonalization, periodic
-boundary conditions and the fidelity susceptibility."""
+boundary conditions and the fidelity susceptibility; window DMRG and
+TDVP, dynamical DMRG (`propagator`) and thermal purifications."""
 
 from .approximate import FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, approximate
 
 from .changebonds import (
     OptimalExpand, RandExpand, SvdCut, VUMPSSvdCut, changebonds,
 )
-from .dmrg import DMRG, find_groundstate_dmrg
+from .dmrg import DMRG, find_groundstate_dmrg, find_groundstate_dmrg_window
 from .dmrg2 import DMRG2, find_groundstate_dmrg2
 from .dmrgexcitation import FiniteExcited, excitations_dmrg
 from .excitations import (
@@ -32,9 +33,14 @@ from .excitations_statmech import (
 )
 from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
     find_groundstate_idmrg2
+from .propagator import DynamicalDMRG, Jeckelmann, NaiveInvert, propagator
 from .statmech import VOMPS, VUMPS_Boundary, leading_boundary
 from .tdvp import TDVP, TDVP2, timestep
 from .time_evolve import time_evolve
+from .thermal import (
+    lift_densempo, lift_hamiltonian, purification_mps, thermal_expectation,
+    thermal_state,
+)
 from .timeevmpo import WI, WII, TaylorCluster, make_time_mpo
 from .toolbox import (
     calc_galerkin, correlation_length, entanglement_spectrum, entropy,

@@ -21,6 +21,7 @@ from ..environments.finite import (
 )
 from ..linalg.lanczos import eigsh_smallest
 from ..states.finitemps import FiniteMPS, physical_bond_dims, support_mask
+from ..states.windowmps import WindowMPS
 from ..tensors.ops import leftorth_hybrid, rightorth_hybrid
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.dynamictols import updatetol
@@ -165,8 +166,48 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
     return ALs, ARs, AC, GRs, lam, eps, diag
 
 
+def find_groundstate_dmrg_window(psi, H, alg: DMRG = DMRG()):
+    """One-site DMRG on the window of a WindowMPS, with the infinite sides'
+    fixed points as boundary environments. Returns (psi, None, epsilon).
+    The window's bond dimension holds the infinite states' at every bond,
+    so the sweep runs without support masks. `finalize(it, psi, H)` is
+    called with the WindowMPS after every sweep (the JAX package's window
+    DMRG does not call it)."""
+    win = psi.window.move_center(0)
+    L = win.length
+    log = IterLog("DMRG(window)", alg.verbosity)
+    ALs, ARs, AC = win.ALs.clone(), win.ARs.clone(), win.AC.clone()
+    eps = 1.0
+    with matmul_precision():
+        Ws = stack_W(H, L, win.dtype, win.device)
+        GL0, GRL = psi.boundary_envs(H)
+        GRs = compute_right_envs(ARs, Ws, GRL)
+        for it in range(1, alg.maxiter + 1):
+            inner_tol = updatetol(eps, it)
+            ALs, ARs, AC, GRs, lam, eps, diag = _dmrg_sweep_impl(
+                ALs, ARs, AC, Ws, GRs, inner_tol, alg.krylovdim,
+                alg.eig_maxrestarts, GL0=GL0, GRL=GRL, reorth=alg.reorth,
+                cheap_galerkin=alg.cheap_galerkin)
+            if alg.finalize is not None:
+                out = WindowMPS(psi.left_gs, FiniteMPS(ALs, ARs, AC, 0),
+                                psi.right_gs)
+                out = alg.finalize(it, out, H) or out
+                w = out.window.move_center(0)
+                ALs, ARs, AC = w.ALs.clone(), w.ARs.clone(), w.AC.clone()
+            log.solver_warn(it, diag, inner_tol)
+            if alg.verbosity >= VERBOSE_ITER:
+                log.conv(it, lam, eps)
+            if eps < alg.tol:
+                break
+    return WindowMPS(psi.left_gs, FiniteMPS(ALs, ARs, AC, 0),
+                     psi.right_gs), None, eps
+
+
 def find_groundstate_dmrg(psi: FiniteMPS, H, alg: DMRG = DMRG()):
-    """Run one-site DMRG. Returns (psi, envs, epsilon)."""
+    """Run one-site DMRG. Returns (psi, envs, epsilon); a WindowMPS goes to
+    `find_groundstate_dmrg_window`."""
+    if isinstance(psi, WindowMPS):
+        return find_groundstate_dmrg_window(psi, H, alg)
     L, D, d = psi.length, psi.D, psi.physicaldim
     dtype, device = psi.dtype, psi.device
     psi = psi.move_center(0)

@@ -1,30 +1,28 @@
 """Expectation values (counterpart of mpskit_tpu/algorithms/expval.py):
 MPOHamiltonians, one-site operators, n-site operator strings and DenseMPOs
-on finite and infinite states, the ranged infinite energy, and
-`infinite_temperature`."""
+on finite and infinite states, the ranged infinite energy, LazySums,
+(timed) MultipliedOperators, LinearCombinations, ProjectionOperators,
+WindowMPSs, and `infinite_temperature`."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..environments.finite import finite_environments, stack_W
+from ..environments.finite import (
+    compute_right_envs, finite_environments, stack_W,
+)
+from ..operators.lazysum import LazySum, MultipliedOperator
 from ..operators.mpo import DenseMPO, MPOHamiltonian, decompose_localmpo
+from ..operators.projection import LinearCombination, ProjectionOperator
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
+from ..states.windowmps import WindowMPS
 from .derivatives import ac_apply
 from .expval_infinite import (
     expval_infinite_densempo, expval_infinite_local, expval_infinite_mpoham,
     expval_infinite_ranged,
 )
-
-_LATER = ("come with the LazySum / MultipliedOperator / window slice of "
-          "queue-1 item 10 (ROADMAP.md)")
-# the JAX package's operator and state types that this dispatcher does not
-# take yet
-_NOT_PORTED = ("LazySum", "MultipliedOperator", "LinearCombination",
-               "ProjectionOperator", "WindowMPS")
-
 
 def _vdot(a, b):
     return torch.vdot(a.reshape(-1), b.reshape(-1))
@@ -120,6 +118,17 @@ def infinite_temperature(H) -> DenseMPO:
     return DenseMPO.from_array(eye, period=H.period)
 
 
+def _expval_window_mpoham(psi: WindowMPS, H: MPOHamiltonian):
+    """<H> of the window against the infinite sides' boundary environments
+    (0-dim real tensor)."""
+    win = psi.window.move_center(0)
+    Ws = stack_W(H, win.length, win.dtype, win.device)
+    GL0, GRL = psi.boundary_envs(H)
+    GRs = compute_right_envs(win.ARs, Ws, GRL)
+    HAC = ac_apply(GL0, Ws[0], GRs[1], win.AC)
+    return (_vdot(win.AC, HAC) / _vdot(win.AC, win.AC)).real
+
+
 def expectation_value(psi, O, *args, envs=None):
     """expectation_value(psi, H) for an MPOHamiltonian: <psi|H|psi> /
     <psi|psi> of a FiniteMPS (0-dim tensor), the per-site energy density
@@ -130,20 +139,36 @@ def expectation_value(psi, O, *args, envs=None):
     operator string starting at `site`; for a DenseMPO, <psi|O|psi> /
     <psi|psi> of a FiniteMPS and the leading transfer eigenvalue per site
     of an InfiniteMPS (a host number). Precomputed environments go by
-    keyword, `envs=`, as in the JAX package. A time after the operator
-    (a MultipliedOperator) and the LazySum, projection and window
-    branches come with a later slice."""
-    for x in (psi, O):
-        if type(x).__name__ in _NOT_PORTED:
-            raise NotImplementedError(
-                f"expectation_value with a {type(x).__name__}: the LazySum, "
-                f"projection and window branches {_LATER}")
+    keyword, `envs=`, as in the JAX package.
+
+    A LazySum gives the sum of its terms' values; a MultipliedOperator
+    its coefficient at the time after it (default 0) times its operator's
+    value; a LinearCombination the weighted sum; a ProjectionOperator
+    |<ket|psi>|^2 / <psi|psi>. A WindowMPS takes local operators and
+    strings on its window, and an MPOHamiltonian against the boundary
+    environments of its infinite sides (the window's energy). A time after
+    a time-independent operator on a finite state has nothing to change
+    and is ignored, as in the JAX package."""
+    if isinstance(O, LazySum):
+        # the time goes on to the timed terms (the JAX package evaluates
+        # them at 0 whatever the time)
+        return sum(expectation_value(psi, o, *args) for o in O)
+    if isinstance(O, MultipliedOperator):
+        t = args[0] if args else 0.0
+        return O.coeff(t) * expectation_value(psi, O.op)
+    if isinstance(O, LinearCombination):
+        return sum(c * expectation_value(psi, o)
+                   for c, o in zip(O.coeffs, O.opps))
+    if isinstance(O, ProjectionOperator):
+        ov = O.ket.dot(psi)
+        return ov.abs() ** 2 / psi.dot(psi).real
+    if isinstance(psi, WindowMPS):
+        if isinstance(O, tuple) and len(O) == 2:
+            return expectation_value(psi.window, O)
+        if isinstance(O, MPOHamiltonian):
+            return _expval_window_mpoham(psi, O)
+        raise TypeError(f"unsupported operator type {type(O)} for WindowMPS")
     if isinstance(psi, FiniteMPS):
-        if args:
-            raise NotImplementedError(
-                f"expectation_value(FiniteMPS, O, {args[0]!r}): a time after "
-                f"the operator and time-dependent operators {_LATER}; pass "
-                "precomputed environments as envs=")
         if isinstance(O, MPOHamiltonian):
             return _expval_finite_mpoham(psi, O, envs)
         if isinstance(O, DenseMPO):

@@ -1,12 +1,14 @@
 """`find_groundstate` dispatcher (counterpart of
-mpskit_tpu/algorithms/find_groundstate.py: its FiniteMPS, InfiniteMPS and
-chained-algorithm branches)."""
+mpskit_tpu/algorithms/find_groundstate.py: its FiniteMPS, InfiniteMPS,
+WindowMPS, LazySum and chained-algorithm branches)."""
 
 from __future__ import annotations
 
+from ..operators.lazysum import LazySum, MultipliedOperator
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
-from .dmrg import DMRG, find_groundstate_dmrg
+from ..states.windowmps import WindowMPS
+from .dmrg import DMRG, find_groundstate_dmrg, find_groundstate_dmrg_window
 from .dmrg2 import DMRG2, find_groundstate_dmrg2
 from .grassmann import (
     GradientGrassmann, find_groundstate_grassmann,
@@ -34,16 +36,27 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     max(tol, 1e-9) and, when VUMPS stops above a tighter tol, refines by
     GradientGrassmann(tol=tol). Otherwise `alg` picks the solver: DMRG,
     DMRG2 or GradientGrassmann for a FiniteMPS, VUMPS, IDMRG1, IDMRG2 or
-    GradientGrassmann for an InfiniteMPS; a ChainedAlg runs its stages in
-    turn. The other branches of the JAX dispatcher come with later slices
-    of the port and raise NotImplementedError naming theirs (ROADMAP.md,
-    queue 1)."""
+    GradientGrassmann for an InfiniteMPS, DMRG for a WindowMPS (which
+    has no default); a ChainedAlg runs its stages in turn. A LazySum is
+    materialized by `sum_materialized()`, a MultipliedOperator by
+    `eval_at(0.0)`. The other branches of the JAX dispatcher come with
+    later slices of the port and raise NotImplementedError naming theirs
+    (ROADMAP.md, queue 1)."""
+    if isinstance(H, LazySum):
+        # a time-independent sum is materialized eagerly: the summed FSM is
+        # one wider MPO, the fastest form for the matvecs
+        H = H.sum_materialized()
+    elif isinstance(H, MultipliedOperator):
+        H = H.eval_at(0.0)
     kw = {} if verbosity is None else {"verbosity": verbosity}
-    if not isinstance(psi, (FiniteMPS, InfiniteMPS)):
+    if isinstance(psi, WindowMPS):
+        if not isinstance(alg, (DMRG, ChainedAlg)):
+            raise TypeError(f"{type(alg).__name__} does not run on a "
+                            "WindowMPS; a window takes DMRG")
+    elif not isinstance(psi, (FiniteMPS, InfiniteMPS)):
         raise NotImplementedError(
             f"find_groundstate for {type(psi).__name__} is not ported yet: "
-            "windows and symmetric states come with later slices "
-            "(ROADMAP.md)")
+            "symmetric states come with queue-1 item 11 (ROADMAP.md)")
     if isinstance(alg, ChainedAlg):
         envs_out, eps = envs, None
         for stage in alg:
@@ -64,6 +77,8 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
             psi, envs_out, eps = find_groundstate_grassmann(
                 psi, H, GradientGrassmann(tol=tol, **kw))
         return psi, envs_out, eps
+    if isinstance(psi, WindowMPS):
+        return find_groundstate_dmrg_window(psi, H, alg)
     table = _FINITE if isinstance(psi, FiniteMPS) else _INFINITE
     for cls, run in table:
         if isinstance(alg, cls):

@@ -30,20 +30,22 @@ from ..environments.finite import (
 )
 from ..environments.infinite_ham import hamiltonian_environments
 from ..linalg.expm import expm_multiply_err
+from ..operators.lazysum import LazySum, MultipliedOperator
 from ..operators.mpo import MPOHamiltonian
+from ..operators.window import Window
 from ..states.finitemps import FiniteMPS, support_mask
 from ..states.gauging import regauge_ACC, regauge_CAC
 from ..states.infinitemps import InfiniteMPS
+from ..states.windowmps import WindowMPS
 from ..tensors.ops import leftorth, notrunc, rightorth, svd_truncated
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.logging import logger
 from .derivatives import ac2_apply, ac_apply, c_apply
 
-# states and operators of the JAX package that the port does not have yet,
-# and the queue-1 item (ROADMAP.md) that brings each
-_NOT_PORTED = {"WindowMPS": 10, "Window": 10, "LazySum": 10,
-               "MultipliedOperator": 10, "SU2FiniteMPS": 11,
-               "SymmetricFiniteMPS": 11, "SymmetricInfiniteMPS": 11}
+# states of the JAX package that the port does not have yet, and the
+# queue-1 item (ROADMAP.md) that brings each
+_NOT_PORTED = {"SU2FiniteMPS": 11, "SymmetricFiniteMPS": 11,
+               "SymmetricInfiniteMPS": 11}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,10 +154,12 @@ def _timestep_infinite(psi: InfiniteMPS, H, dt, m: int, gauge_tol: float,
 # finite TDVP
 # ----------------------------------------------------------------------------
 
-def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, masks=None):
+def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
+                     GRL=None, masks=None):
     """One symmetric second-order step, starting and ending with center 0.
     Returns (ALs, ARs, AC, GRs, exp_err): new stacks (the inputs are not
-    written) and the worst Krylov estimate, a host float.
+    written) and the worst Krylov estimate, a host float. GL0/GRL override
+    the open-chain boundary environments (a WindowMPS's infinite sides).
 
     masks: optional (L, D, d, D) masks (rank support and/or abelian charge
     conservation) re-applied after every decomposition: in float32 the QR
@@ -174,7 +178,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, masks=None):
 
     # ---- left to right: site i forward, then its right bond backward ----
     ALs_new = torch.empty_like(ALs)
-    GL = left_boundary(w, D, dtype, device)
+    GL = left_boundary(w, D, dtype, device) if GL0 is None else GL0
     GLs = torch.empty((L,) + tuple(GL.shape), dtype=dtype, device=device)
     for i in range(L):
         GLs[i] = GL
@@ -203,7 +207,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, masks=None):
     # the environment right of site i and GRs_new[0] repeats GRs_new[1]
     ARs_new = ARs.clone()
     GRs_new = torch.empty_like(GRs)
-    GR = right_boundary(w, D, dtype, device)
+    GR = right_boundary(w, D, dtype, device) if GRL is None else GRL
     for i in range(L - 1, -1, -1):
         GRs_new[i + 1] = GR
         GLi, W = GLs[i], Ws[i]
@@ -228,19 +232,52 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, masks=None):
     return ALs_new, ARs_new, AC, GRs_new, max(errs)
 
 
-def timestep(psi, H, t, dt, alg=None, envs=None):
-    """Evolve psi by one time step dt. Returns (psi, envs): for an
-    InfiniteMPS the environments of the step, which warm-start the next
-    one when passed back as `envs`; None for a FiniteMPS. `t` is where a
-    time-dependent operator would be evaluated (those come with queue-1
-    item 10, ROADMAP.md)."""
-    _not_ported(H)
-    _not_ported(psi)
+def _materialize(H, t):
+    """A time-dependent operator as the plain MPOHamiltonian at time t."""
+    if isinstance(H, MultipliedOperator):
+        return H.eval_at(t)
+    if isinstance(H, LazySum):
+        return H(t).sum_materialized()
+    return H
+
+
+def _require_mpo(H):
     if not isinstance(H, MPOHamiltonian):
         raise TypeError(f"timestep takes an MPOHamiltonian, got "
                         f"{type(H).__name__}")
+
+
+def timestep(psi, H, t, dt, alg=None, envs=None):
+    """Evolve psi by one time step dt. Returns (psi, envs).
+
+    A LazySum or MultipliedOperator (and each slot of a Window) is
+    evaluated at the midpoint t + dt/2. An InfiniteMPS returns the
+    environments of the step, which warm-start the next one when passed
+    back as `envs`; a FiniteMPS returns None. A WindowMPS under a Window
+    operator co-evolves its boundaries: the infinite sides take an infinite
+    TDVP step under Window.left / Window.right, then the window evolves
+    under Window.middle against the updated fixed points, and the returned
+    envs are the pair (left, right) of infinite environments to pass back.
+    Under a plain operator the boundaries stay frozen and envs is None."""
+    _not_ported(psi)
+    if isinstance(H, Window):
+        H = H.map(lambda O: _materialize(O, t + dt / 2))
+        for O in (H.left, H.middle, H.right):
+            _require_mpo(O)
+    else:
+        H = _materialize(H, t + dt / 2)
+        _require_mpo(H)
     if alg is None:
         alg = TDVP()
+    if isinstance(psi, WindowMPS):
+        _require_complex(psi.dtype)
+        if isinstance(alg, TDVP2):
+            raise TypeError("TDVP2 evolves a FiniteMPS; a WindowMPS takes "
+                            "TDVP")
+        return _timestep_window(psi, H, dt, alg, envs)
+    if isinstance(H, Window):
+        raise TypeError("a Window operator evolves a WindowMPS, got "
+                        f"{type(psi).__name__}")
 
     if isinstance(psi, InfiniteMPS):
         _require_complex(psi.dtype)
@@ -275,6 +312,42 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
         return FiniteMPS(ALs, ARs, AC, 0), None
 
     raise TypeError(type(psi))
+
+
+def _timestep_window(psi: WindowMPS, H, dt, alg, envs):
+    """One TDVP step of a WindowMPS: co-evolving boundaries under a Window
+    (envs threads the (left, right) infinite environments between steps),
+    frozen boundaries under a plain MPOHamiltonian. The window runs without
+    support masks: its bonds hold the infinite D everywhere."""
+    left_gs, right_gs, out_envs = psi.left_gs, psi.right_gs, None
+    with matmul_precision():
+        if isinstance(H, Window):
+            lenvs, renvs = envs if envs is not None else (None, None)
+            left_gs, lenvs, errL = _timestep_infinite(
+                left_gs, H.left, dt, alg.expalg_m, alg.gauge_tol,
+                alg.env_tol, env_guess=lenvs)
+            right_gs, renvs, errR = _timestep_infinite(
+                right_gs, H.right, dt, alg.expalg_m, alg.gauge_tol,
+                alg.env_tol, env_guess=renvs)
+            _warn_exp(alg, max(errL, errR),
+                      env_resid=max(lenvs.resid, renvs.resid),
+                      name="TDVP(window boundaries)")
+            psi = WindowMPS(left_gs, psi.window, right_gs)
+            GL0, GRL, lenvs, renvs = psi.boundary_envs(
+                H.left, H_right=H.right, env_init=(lenvs, renvs),
+                return_envs=True)
+            H_mid, name, out_envs = H.middle, "TDVP(window)", (lenvs, renvs)
+        else:
+            GL0, GRL = psi.boundary_envs(H)
+            H_mid, name = H, "TDVP(window, frozen)"
+        win = psi.window.move_center(0)
+        Ws = stack_W(H_mid, win.length, win.dtype, win.device)
+        GRs = compute_right_envs(win.ARs, Ws, GRL)
+        ALs, ARs, AC, _, exp_err = _timestep_finite(
+            win.ALs, win.ARs, win.AC, Ws, GRs, alg.expalg_m, dt=dt, GL0=GL0,
+            GRL=GRL)
+    _warn_exp(alg, exp_err, name=name)
+    return WindowMPS(left_gs, FiniteMPS(ALs, ARs, AC, 0), right_gs), out_envs
 
 
 # ----------------------------------------------------------------------------

@@ -4,35 +4,39 @@ entropy profiles, the Galerkin residual, transfer spectra and correlation
 lengths, the energy variance, exact diagonalization, periodic boundary
 conditions and the fidelity susceptibility.
 
-The window branches (a WindowMPS state, the LazySum / MultipliedOperator
-variance) come with a later slice of queue-1 item 10 (ROADMAP.md); the
-charge-sector transfer spectrum with item 11."""
+A WindowMPS's spectrum and entropy are its window's; its variance is the
+two-site tangent variance with the infinite sides as boundaries. The
+charge-sector transfer spectrum comes with queue-1 item 11 (ROADMAP.md)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..environments.finite import finite_environments, stack_W
+from ..environments.finite import (
+    compute_right_envs, finite_environments, stack_W,
+)
 from ..environments.infinite_ham import hamiltonian_environments
 from ..linalg.arnoldi import spectrum_arnoldi
 from ..linalg.gmres import linsolve_cg
 from ..linalg.lanczos import eigsh_smallest
+from ..operators.lazysum import LazySum, MultipliedOperator
 from ..operators.mpo import DenseMPO, MPOHamiltonian
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from ..states.quasiparticle import (
     FiniteQP, LeftGaugedQP, null_spaces, qp_to_finitemps,
 )
-from ..tensors.ops import leftorth, rightnull, safe_xlogx
-from ..transfermatrix.transfer import mps_transfer_matvec_left
+from ..states.windowmps import WindowMPS
+from ..tensors.ops import leftnull, leftorth, rightnull, safe_xlogx
+from ..transfermatrix.transfer import (
+    mps_transfer_matvec_left, transfer_left_mpo,
+)
 from .derivatives import ac2_apply, ac_apply
 from .excitations import (
     _deflated, _qp_matvec_infinite, _renorm_energies_infinite,
 )
 from .expval import expectation_value
-
-_WINDOWS = "windows come with a later slice of queue-1 item 10 (ROADMAP.md)"
 
 
 def _normalized_svdvals(C):
@@ -43,7 +47,10 @@ def _normalized_svdvals(C):
 def entanglement_spectrum(psi, bond: int = None):
     """Normalized Schmidt values across `bond`: for a FiniteMPS the bond
     right of site bond-1 (default the middle one), for an InfiniteMPS the
-    singular values of C[bond] (default 0)."""
+    singular values of C[bond] (default 0); a WindowMPS's are its
+    window's."""
+    if isinstance(psi, WindowMPS):
+        psi = psi.window
     if isinstance(psi, FiniteMPS):
         if bond is None:
             bond = psi.length // 2
@@ -52,8 +59,7 @@ def entanglement_spectrum(psi, bond: int = None):
         return _normalized_svdvals(psi.move_center(bond - 1).bond_matrix())
     if isinstance(psi, InfiniteMPS):
         return _normalized_svdvals(psi.C[(bond or 0) % psi.period])
-    raise NotImplementedError(
-        f"entanglement_spectrum of a {type(psi).__name__}: {_WINDOWS}")
+    raise TypeError(type(psi))
 
 
 def entropy(psi, bond: int = None):
@@ -156,8 +162,16 @@ def variance(psi, H, envs=None):
     (a FiniteQP is embedded as a FiniteMPS first); for an InfiniteMPS the
     two-site tangent variance density summed over the cell, the norm of
     H_eff on each bond's two-site theta projected on both null spaces
-    (0-dim real tensors). The LazySum, MultipliedOperator and WindowMPS
-    branches come with their types."""
+    (0-dim real tensors); for a WindowMPS the same two-site tangent
+    variance summed over the window's bonds, with the infinite sides'
+    fixed points as boundary environments. A LazySum is materialized by
+    `sum_materialized()`, a MultipliedOperator by `eval_at(0.0)`."""
+    if isinstance(H, LazySum):
+        return variance(psi, H.sum_materialized())
+    if isinstance(H, MultipliedOperator):
+        return variance(psi, H.eval_at(0.0))
+    if isinstance(psi, WindowMPS):
+        return _variance_window(psi, H)
     if isinstance(psi, FiniteQP):
         return variance(qp_to_finitemps(psi), H)
     if isinstance(psi, FiniteMPS):
@@ -178,10 +192,30 @@ def variance(psi, H, envs=None):
                              rightnull(psi.AR[j]).conj())
             total = total + torch.sum(M.abs() ** 2)
         return total
-    raise NotImplementedError(
-        f"variance of a {type(psi).__name__} / {type(H).__name__}: the "
-        "LazySum, MultipliedOperator and window branches come with a later "
-        "slice of queue-1 item 10 (ROADMAP.md)")
+    raise TypeError(type(psi))
+
+
+def _variance_window(psi, H):
+    """The window's two-site tangent variance: on each bond (i, i+1) the
+    norm of H_eff theta projected on the left null space of AL_i and the
+    right null space of AR_{i+1}, with the center walked along."""
+    p = psi.window.move_center(0)
+    L = p.length
+    Ws = stack_W(H, L, p.dtype, p.device)
+    GL, GRL = psi.boundary_envs(H)
+    GRs = compute_right_envs(p.ARs, Ws, GRL)
+    total = torch.zeros((), dtype=p.AC.real.dtype, device=p.device)
+    for i in range(L - 1):
+        theta = torch.einsum("lpm,mqr->lpqr", p.AC, p.ARs[i + 1])
+        h2 = ac2_apply(GL, Ws[i], Ws[i + 1], GRs[i + 2], theta)
+        VL = leftnull(leftorth(p.AC)[0])
+        M = torch.einsum("lpk,lpqr,mqr->km", VL.conj(), h2,
+                         rightnull(p.ARs[i + 1]).conj())
+        total = total + torch.sum(M.abs() ** 2)
+        if i < L - 2:
+            p = p.move_center(i + 1)
+            GL = transfer_left_mpo(GL, Ws[i], p.ALs[i], p.ALs[i])
+    return total
 
 
 # ----------------------------------------------------------------------------

@@ -11,6 +11,7 @@ from .operators.mpo import DenseMPO, MPOHamiltonian
 from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
 from .states.quasiparticle import FiniteQP, LeftGaugedQP
+from .states.windowmps import WindowMPS
 
 
 def finite_mps_from_numpy(ALs, ARs, AC, center: int,
@@ -31,6 +32,19 @@ def infinite_mps_from_numpy(AL, AR, AC, C, device="cuda") -> InfiniteMPS:
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     return InfiniteMPS(t(AL), t(AR), t(AC), t(C))
+
+
+def window_mps_from_numpy(left, window, right, device="cuda") -> WindowMPS:
+    """WindowMPS from the numpy leaves of a JAX WindowMPS: left and right
+    are (AL, AR, AC, C) of the infinite sides, window is (ALs, ARs, AC,
+    center); on the card unless `device` says otherwise. A right side
+    given as the very same tuple as the left one is the same InfiniteMPS,
+    as in `WindowMPS.from_infinite`."""
+    left_gs = infinite_mps_from_numpy(*left, device=device)
+    right_gs = (left_gs if right is left
+                else infinite_mps_from_numpy(*right, device=device))
+    return WindowMPS(left_gs, finite_mps_from_numpy(*window, device=device),
+                     right_gs)
 
 
 def left_gauged_qp_from_numpy(Xs, VLs, left_gs: InfiniteMPS,

@@ -1,0 +1,94 @@
+"""Checkpoint and resume of states (counterpart of
+mpskit_tpu/utils/serialize.py), in the JAX package's `.npz` layout, so
+that a checkpoint either package wrote loads in the other: `__type__`
+names the container, `leaf_0`, `leaf_1`, ... hold its tensors in the JAX
+package's pytree order, and the static data sits beside them (`__center__`,
+`__nrows__`, `__momentum__`, `__trivial__`).
+
+Covered containers: FiniteMPS, InfiniteMPS, WindowMPS, MPSMultiline and
+LeftGaugedQP. The symmetric and anyonic containers come with queue-1 item
+11 (ROADMAP.md). Every iterative algorithm's `finalize(iter, psi, H)` hook
+can call `save_state`."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..states.finitemps import FiniteMPS
+from ..states.infinitemps import InfiniteMPS
+from ..states.multiline import MPSMultiline
+from ..states.quasiparticle import LeftGaugedQP
+from ..states.windowmps import WindowMPS
+
+_ITEM_11 = ("SymmetricFiniteMPS", "SymmetricInfiniteMPS", "AnyonicInfiniteMPS")
+
+
+def _leaves(psi) -> list:
+    """The container's tensors in the JAX package's pytree order."""
+    if isinstance(psi, FiniteMPS):
+        return [psi.ALs, psi.ARs, psi.AC]
+    if isinstance(psi, InfiniteMPS):
+        return [psi.AL, psi.AR, psi.AC, psi.C]
+    if isinstance(psi, WindowMPS):
+        return (_leaves(psi.left_gs) + _leaves(psi.window)
+                + _leaves(psi.right_gs))
+    if isinstance(psi, MPSMultiline):
+        return [t for row in psi.rows for t in _leaves(row)]
+    if isinstance(psi, LeftGaugedQP):
+        return ([psi.Xs, psi.VLs] + _leaves(psi.left_gs)
+                + _leaves(psi.right_gs))
+    raise TypeError(f"cannot checkpoint a {type(psi).__name__}")
+
+
+def save_state(path: str, psi) -> None:
+    """Save a state container to .npz with its static data."""
+    tname = type(psi).__name__
+    if tname in _ITEM_11:
+        raise NotImplementedError(
+            f"save_state of a {tname} comes with the symmetric states of "
+            "queue-1 item 11 (ROADMAP.md)")
+    arrays = {"__type__": np.array(tname)}
+    arrays.update({f"leaf_{i}": t.detach().cpu().resolve_conj().numpy()
+                   for i, t in enumerate(_leaves(psi))})
+    if isinstance(psi, FiniteMPS):
+        arrays["__center__"] = np.array(psi.center)
+    elif isinstance(psi, WindowMPS):
+        arrays["__center__"] = np.array(psi.window.center)
+    elif isinstance(psi, MPSMultiline):
+        arrays["__nrows__"] = np.array(len(psi.rows))
+    elif isinstance(psi, LeftGaugedQP):
+        arrays["__momentum__"] = np.asarray(psi.momentum)
+        arrays["__trivial__"] = np.array(bool(psi.trivial))
+    np.savez(path, **arrays)
+
+
+def load_state(path: str, device="cuda"):
+    """Load a container that `save_state` (of either package) wrote, onto
+    `device` (the card unless the caller asks for the CPU)."""
+    data = np.load(path, allow_pickle=False)
+    tname = str(data["__type__"])
+    if tname in _ITEM_11:
+        raise NotImplementedError(
+            f"load_state of a {tname} comes with the symmetric states of "
+            "queue-1 item 11 (ROADMAP.md)")
+    n = len([k for k in data.files if k.startswith("leaf_")])
+    leaves = [torch.from_numpy(data[f"leaf_{i}"]).to(device)
+              for i in range(n)]
+    if tname == "FiniteMPS":
+        return FiniteMPS(*leaves[:3], int(data["__center__"]))
+    if tname == "InfiniteMPS":
+        return InfiniteMPS(*leaves)
+    if tname == "WindowMPS":
+        return WindowMPS(InfiniteMPS(*leaves[0:4]),
+                         FiniteMPS(*leaves[4:7], int(data["__center__"])),
+                         InfiniteMPS(*leaves[7:11]))
+    if tname == "MPSMultiline":
+        return MPSMultiline(tuple(InfiniteMPS(*leaves[4 * r: 4 * r + 4])
+                                  for r in range(int(data["__nrows__"]))))
+    if tname == "LeftGaugedQP":
+        return LeftGaugedQP(leaves[0], leaves[1], InfiniteMPS(*leaves[2:6]),
+                            InfiniteMPS(*leaves[6:10]),
+                            float(data["__momentum__"]),
+                            bool(data["__trivial__"]))
+    raise TypeError(f"unknown state type {tname}")

@@ -39,9 +39,19 @@ def _no_card():
                                    "infinite_random", "infinite_from_numpy",
                                    "finite_qp_from_numpy", "mpo_to_mps",
                                    "changebonds_densempo", "from_dense",
-                                   "exact_diagonalization", "isometry"])
-def test_entry_points_default_to_the_card(entry):
+                                   "exact_diagonalization", "isometry",
+                                   "window_from_infinite", "purification_mps",
+                                   "thermal_state", "propagator",
+                                   "load_state"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
     _no_card()
+    gen = torch.Generator().manual_seed(0)
+    if entry == "load_state":
+        from mpskit_tpu_torch import save_state
+
+        path = str(tmp_path / "psi.npz")
+        save_state(path, FiniteMPS.random(L, d, D, torch.float64, "cpu",
+                                          gen))
     # CPU-only torch raises AssertionError ("not compiled with CUDA"), a
     # CUDA build without a device RuntimeError
     with pytest.raises((AssertionError, RuntimeError)):
@@ -71,6 +81,28 @@ def test_entry_points_default_to_the_card(entry):
             from mpskit_tpu_torch import isometry
 
             isometry(3, 2)
+        elif entry == "window_from_infinite":
+            from mpskit_tpu_torch import WindowMPS
+
+            WindowMPS.from_infinite(InfiniteMPS.random(
+                1, d, D, torch.float64, "cpu", gen), L)
+        elif entry == "purification_mps":
+            from mpskit_tpu_torch import purification_mps
+
+            purification_mps(d, L, D)
+        elif entry == "thermal_state":
+            from mpskit_tpu_torch import thermal_state
+
+            thermal_state(transverse_field_ising_lattice(), L, 0.1, 0.05, D)
+        elif entry == "propagator":
+            from mpskit_tpu_torch import propagator
+
+            propagator(FiniteMPS.random(L, d, D, torch.float64, "cpu", gen),
+                       0.5j, transverse_field_ising_lattice())
+        elif entry == "load_state":
+            from mpskit_tpu_torch import load_state
+
+            load_state(path)
         else:
             As = _arrays()[0]
             finite_qp_from_numpy(As[:, :, :, :2].sum(1), As, As, As,
@@ -237,3 +269,32 @@ def test_measurements_stay_on_the_states_device():
     G = fidelity_susceptibility(ipsi, H, [MPOHamiltonian.from_local(-X)],
                                 envs=envs, tol=1e-6)
     assert G.device.type == "cpu" and G.shape == (1, 1)
+
+
+def test_windows_propagator_thermal_and_checkpoints_on_the_cpu(tmp_path):
+    """WindowMPS.from_infinite, purification_mps, thermal_state,
+    propagator and load_state build on the CPU when asked; window DMRG and
+    window TDVP keep a CPU window there."""
+    from mpskit_tpu_torch import (
+        DMRG, TDVP, Window, WindowMPS, find_groundstate, load_state,
+        propagator, purification_mps, save_state, thermal_state, timestep,
+    )
+
+    H = transverse_field_ising_lattice(g=1.5)
+    gen = torch.Generator().manual_seed(0)
+    ipsi = InfiniteMPS.random(1, d, D, torch.complex128, "cpu", gen)
+    win = WindowMPS.from_infinite(ipsi, L, device="cpu")
+    assert win.device.type == "cpu" and win.left_gs is ipsi
+    out, _, _ = find_groundstate(win, H, DMRG(maxiter=2, verbosity=0))
+    assert out.window.AC.device.type == "cpu"
+    out, envs = timestep(win, Window(H), 0.0, 0.05, TDVP())
+    assert out.window.AC.device.type == out.left_gs.AL.device.type == "cpu"
+    assert purification_mps(d, L, D, device="cpu").AC.device.type == "cpu"
+    assert thermal_state(H, L, 0.1, 0.05, D, device="cpu").AC.device.type \
+        == "cpu"
+    fin = FiniteMPS.random(L, d, D, torch.float64, "cpu", gen)
+    G, sol = propagator(fin, 0.5j, H, device="cpu")
+    assert G.device.type == sol.AC.device.type == "cpu"
+    path = str(tmp_path / "win.npz")
+    save_state(path, win)
+    assert load_state(path, device="cpu").window.AC.device.type == "cpu"

@@ -419,10 +419,42 @@ def test_a_real_state_or_a_wrong_argument_raises_type_error():
     ("MultipliedOperator", 10, "H"), ("SU2FiniteMPS", 11, "psi"),
     ("SymmetricFiniteMPS", 11, "psi"), ("SymmetricInfiniteMPS", 11, "psi")])
 def test_unported_branches_name_their_queue_item(name, item, where):
+    """The symmetric states raise NotImplementedError naming item 11. The
+    item-10 types are ported: the real WindowMPS, Window, LazySum and
+    MultipliedOperator take a step (a Window or a lazy sum at the midpoint
+    equal to the plain operator there), and stand-ins that only carry
+    those names raise TypeError."""
     stand_in = type(name, (), {})()
     H = heisenberg_XXX(spin=0.5)
     psi = FiniteMPS.random(4, 2, 4, C128, "cpu",
                            torch.Generator().manual_seed(0))
     args = (stand_in, H) if where == "psi" else (psi, stand_in)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    if item == 11:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            timestep(*args, 0.0, 0.05)
+        return
+    with pytest.raises(TypeError):
         timestep(*args, 0.0, 0.05)
+    from mpskit_tpu_torch import (
+        LazySum, TimedOperator, UntimedOperator, Window, WindowMPS,
+    )
+
+    ref, _ = timestep(psi, H * 0.75, 0.0, 0.05)
+    if name == "WindowMPS":
+        ipsi = InfiniteMPS.random(1, 2, 4, C128, "cpu",
+                                  torch.Generator().manual_seed(1))
+        win = WindowMPS.from_infinite(ipsi, 4, device="cpu")
+        out, envs = timestep(win, H, 0.0, 0.05)
+        assert envs is None and out.window.AC.shape == win.window.AC.shape
+        return
+    op = {"Window": Window(UntimedOperator(H, 0.75)),
+          "LazySum": LazySum([UntimedOperator(H, 0.5),
+                              TimedOperator(H, lambda t: 10 * t)]),
+          "MultipliedOperator": TimedOperator(H, lambda t: 30 * t)}[name]
+    if name == "Window":
+        with pytest.raises(TypeError, match="WindowMPS"):
+            timestep(psi, op, 0.0, 0.05)
+        return
+    out, _ = timestep(psi, op, 0.0, 0.05)   # both at t + dt/2 = 0.025
+    np.testing.assert_allclose(out.AC.numpy(), ref.AC.numpy(), rtol=0,
+                               atol=1e-14)
