@@ -115,7 +115,7 @@ Phases, in order; any failure exits non-zero:
      launches;
  15. the statmech boundaries in complex128 (`[boundary-f64]` lines), at
      the JAX tests' configurations on the critical classical Ising MPO:
-     VUMPS_Boundary D=13 (tol 1e-9, 60 iterations) and an MPOHamiltonian
+     VUMPS_Boundary D=13 (tol 1e-9, 40 iterations) and an MPOHamiltonian
      row D=13 (40 iterations) within 1e-3 of the reference's 2.5337, VOMPS D=8 within 2e-3,
      GradientGrassmann D=10 after a VOMPS(tol=1e-3) warm-up within 1e-3
      (and not below the warm-up's eigenvalue), two MPOMultiline rows D=8
@@ -128,7 +128,7 @@ Phases, in order; any failure exits non-zero:
  16. the boundary slice at full width (`[boundary]` lines):
      leading_boundary of the critical classical Ising MPO from a seeded
      random D=256 complex128 state with VUMPS_Boundary(tol=1e-9,
-     maxiter=20) (krylovdim 30, environment tolerance 1e-12, gauge
+     maxiter=15) (krylovdim 30, environment tolerance 1e-12, gauge
      tolerance 1e-13): eps and lambda every 5 iterations, the metric
      boundary_vumps_iteration_time_ising_D256_complex128 (the mean of
      iterations 2..N) with host syncs per iteration in a JSON line, the
@@ -184,8 +184,8 @@ Phases, in order; any failure exits non-zero:
      as Window(LazySum) in complex64 from (a)'s state, 10 steps of dt=0.05
      with TDVP(expalg_m=20), window_tdvp_step_time_tfim_ramp_L32_D256_
      complex64 (steps 2-10) in a JSON line with syncs per step, the
-     frozen-boundary run's error printed beside; gates: the centre <X>
-     and <ZZ> within 1e-4 of the infinite TDVP of the same sum at every
+     frozen-boundary run's error after 5 steps printed beside; gates: the
+     centre <X> and <ZZ> within 1e-4 of the infinite TDVP of the same sum at every
      step, the norm within 1e-5 of 1, no K1 launch; (c) propagator in
      complex128: the ground-state pole at L=32 D=64 within 1e-9 relative
      of 1/(0.5 + 0.3i), NaiveInvert (1e-8) and Jeckelmann (1e-6) at L=10
@@ -193,7 +193,64 @@ Phases, in order; any failure exits non-zero:
      thermal_state at L=32 beta=1 dbeta=0.025 Dmax=128 (g=1.2) within
      5e-3 relative of the free-fermion Gibbs energy, at L=8 Dmax=24 card
      against CPU 1e-10; (e) save_state / load_state of (a)'s window and
-     infinite state, bit for bit on the card.
+     infinite state, bit for bit on the card;
+ 19. segment-parallel DMRG, the parameter scan and the compat surface
+     (`[rs]` lines): (a) find_groundstate with RealSpaceParallelDMRG(
+     nseg=4, warmup=2, krylovdim=10, eig_maxrestarts=2, maxiter=10) on the
+     TFIM g=1.5 at L=32 D=512 float32, per-round times and host syncs,
+     rsdmrg_round_time_tfim_L32_D512_float32 (rounds 2.., round 1 holding
+     the warmup) in a JSON line, the same rounds with the stitch in
+     float32 printed beside, K1's launches counted apart in the warmup
+     sweeps and in the rounds (the segment sweeps' probes of a warmed-up
+     state stay below 3e-2 and skip K1), then one round with no warmup
+     from a random state; gates: launches_rsdmrg > 0, the warmup and
+     round counts adding up to it, the cold round's segment sweeps
+     launching K1 (launches_rsdmrg_segments_cold > 0), the energy within
+     E_TOL_F32 relative of the closed form; (b) RS-DMRG2 (two_site,
+     truncdim(64)) at D=64 float64 within 1e-8 of the closed form; (c)
+     scan_groundstate_vumps over g = 1.2, 1.5, 2.0, 3.0 at D=256 float32
+     from seeded random states with VUMPS(tol=1e-6, maxiter=60),
+     vumps_scan_iteration_time_tfim_B4_D256_float32 (a lockstep iteration
+     of the four members, timed from outside) in a JSON line; gates: each
+     density within 1e-5 of the exact one, no K1 launch; (d) environments
+     / leftenv / rightenv on (a)'s state against the environments the
+     sweep returned and TransferMatrix against transfer_left (1e-5
+     relative), entanglement_plot_data of (b)'s state and
+     transfer_plot_data of a scan member in float64, card against CPU
+     (1e-10);
+ 20. the U(1) / Z_2 symmetric states (`[u1]` lines): (a)
+     SymmetricFiniteMPS.random of the XX chain (charges (0, 1)) at L=32
+     D=512 float32 in the sector N=16 through find_groundstate with
+     DMRG(krylovdim=10, eig_maxrestarts=2, tol=1e-6, maxiter=12) (K1's w=4
+     tier), per-sweep times and syncs, u1_dmrg_sweep_time_xx_L32_D512_
+     float32 (sweeps 2..) in a JSON line; gates: the energy within 1e-5
+     relative of sum_{k<=16} -2 cos(k pi / 33), <N> within 1e-4 of 16,
+     every entry outside the charge mask exactly 0, launches_u1 > 0; (b)
+     sector DMRG2 (4 sweeps, the N=17 one split by synchronizations into
+     eigensolves, per-sector SVD splits and environment pushes) then the
+     sector DMRG at D=128 float64 in N=16 and N=17: E(17) - E(16) within
+     1e-8 of -2 cos(17 pi / 33), the merged sector spectrum at bond 16
+     equal to entanglement_spectrum to 1e-12, the middle entropy within
+     1e-6 of the exact free-fermion one; the three sector-1
+     quasiparticles above the vacuum of the XX chain at h=4 (L=32 D=64)
+     within 1e-7 of h - 2 cos(n pi / 33); (c) from an N=16 ground state at
+     D=256 (float32 DMRG, made complex64) the quench to XXZ(delta=0.5), 10
+     TDVP(expalg_m=20) steps of dt=0.05 symmetric and the same steps
+     unsymmetric, u1_tdvp_step_time_xxz_L32_D256_complex64 (steps 2..) in
+     a JSON line; gates: the basis order (charge (0, 1) is 1 - 2 Sz), the
+     energy (relative) and every <n_i> of the two runs within 1e-5 at
+     every step, <N> conserved to 1e-5, no entry outside the mask, no K1
+     launch; (d) the sector VUMPS of the XXX chain (two-site cell, charges
+     +-1) at D=128 float64, VUMPS(tol=1e-8, maxiter=100): the density
+     within 1e-4 of 1 - 4 ln 2, C outside its mask below 1e-12,
+     transfer_spectrum(sector=0) |lambda_0| = 1 to 1e-10, sector 2 below
+     1; the Z_2 ground state of the parity TFIM g=1.5 at D=48 and its
+     sector-1 quasiparticle at p=0 within 1e-6 of 2|g - 1| = 1; (e)
+     changebonds_symmetric(OptimalExpand(16)) of (d)'s state, no entry
+     outside the new masks and, after 10 VUMPS iterations at the larger D,
+     an energy not above the one before; save_state / load_state of a Z_2
+     SymmetricFiniteMPS and of (d)'s state, bit for bit with labels,
+     masks and modulus.
 Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -201,6 +258,7 @@ The last two lines are a JSON object describing each kernel and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -257,7 +315,7 @@ HALDANE_D, HALDANE_GAP, HALDANE_TOL = 48, 0.41047925, 1e-4
 # (BASELINE.md:18)
 ONSAGER = float(np.sqrt(2) * np.exp(2 * 0.915965594177219015 / np.pi))
 BOUNDARY_ORACLE, BOUNDARY_ORACLE_TOL = 2.5337, 1e-3
-BOUNDARY_D, BOUNDARY_ITERS, BOUNDARY_REL_TOL = 256, 20, 1e-7
+BOUNDARY_D, BOUNDARY_ITERS, BOUNDARY_REL_TOL = 256, 15, 1e-7
 BOUNDARY_CARD_TOL = 1e-10   # one iteration, card against CPU, complex128
 # phase 17, leg (a): free fermions (the JW chain of models/fermions.py,
 # w=4) at the finite cell's width, against the exact free-fermion state
@@ -290,6 +348,8 @@ WIN_VUMPS_ITERS = 60
 # leg (b): the co-evolving window TDVP of the field ramp H(t) = H_zz +
 # (1.5 - 0.6 t) H_x in complex64 against the infinite TDVP of the same sum
 RAMP_STEPS, RAMP_DT, RAMP_M, RAMP_TOL, RAMP_NORM_TOL = 10, 0.05, 20, 1e-4, 1e-5
+# the frozen-boundary run beside it (printed only) goes half as far
+FROZEN_STEPS = 5
 # leg (c): dynamical DMRG in complex128, the ground-state pole at L=32 D=64
 # and a random state at L=10 D=32 against the dense solve
 DD_L, DD_D, DD_POLE_TOL = 32, 64, 1e-9
@@ -299,6 +359,27 @@ DD_NAIVE_TOL, DD_JECK_TOL, DD_CARD_TOL = 1e-8, 1e-6, 1e-10
 # energy (the JAX test's 5e-3), and card against CPU at L=8 Dmax=24
 TH_L, TH_G, TH_BETA, TH_DBETA, TH_DMAX, TH_TOL = 32, 1.2, 1.0, 0.025, 128, 5e-3
 TH_CARD_L, TH_CARD_DMAX, TH_CARD_TOL = 8, 24, 1e-10
+# phase 19: segment-parallel DMRG of the TFIM g=1.5 at the finite cell's
+# width (L=32, D=512, float32), its two-site form in float64 at D=64, the
+# parameter scan at the infinite cell's width (D=256, float32)
+RS_L, RS_D, RS_G, RS_NSEG, RS_ROUNDS = 32, 512, 1.5, 4, 10
+RS2_D, RS2_TOL = 64, 1e-8
+SCAN_GS, SCAN_D, SCAN_ITERS, SCAN_TOL = (1.2, 1.5, 2.0, 3.0), 256, 60, 1e-5
+COMPAT_TOL32, PLOT_CARD_TOL = 1e-5, 1e-10
+# phase 20: U(1) / Z_2 symmetric states. Leg (a): the XX chain (free
+# fermions, charges (0, 1)) at L=32 D=512 float32 in the sector N=16
+U1_L, U1_D, U1_N, U1_SWEEPS, U1_TOL, U1_N_TOL = 32, 512, 16, 12, 1e-5, 1e-4
+# leg (b): sector DMRG2 then DMRG at D=128 float64 in N=16 and N=17, and
+# charged quasiparticles above the h=4 vacuum at D=64
+U1_D2, U1_DMRG2_SWEEPS, U1_GAP_TOL, U1_SPEC_TOL, U1_S_TOL = 128, 4, 1e-8, \
+    1e-12, 1e-6
+U1_QP_D, U1_QP_H, U1_QP_TOL = 64, 4.0, 1e-7
+# leg (c): symmetric TDVP of the quench XX -> XXZ(0.5) in complex64
+U1_TDVP_D, U1_TDVP_STEPS, U1_TDVP_DT, U1_TDVP_TOL = 256, 10, 0.05, 1e-5
+# leg (d): sector VUMPS of the XXX chain (two-site cell, charges +-1) and
+# the Z_2 gap of the parity TFIM
+U1_INF_D, U1_INF_TOL, Z2_D, Z2_G, Z2_GAP_TOL = 128, 1e-4, 48, 1.5, 1e-6
+U1_EXPAND = 16
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -1833,8 +1914,8 @@ def phase_boundary_f64():
 
     t0 = time.perf_counter()
     psi, envs, eps = leading_boundary(rand(1, 13), O,
-                                      VUMPS_Boundary(tol=1e-9, maxiter=60))
-    _boundary_gate(f"VUMPS_Boundary D=13 tol 1e-9, 60 iterations (eps "
+                                      VUMPS_Boundary(tol=1e-9, maxiter=40))
+    _boundary_gate(f"VUMPS_Boundary D=13 tol 1e-9, 40 iterations (eps "
                    f"{eps:.1e}, "
                    f"{time.perf_counter() - t0:.1f} s)",
                    expectation_value(psi, O, envs=envs), ref, tol)
@@ -2641,13 +2722,14 @@ def _window_ramp(psi_inf):
         "metric": f"window_tdvp_step_time_tfim_ramp_L{L}_D{psi.D}_complex64",
         "value": sum(later) / len(later), "unit": "s", "steps": len(times),
         "host_syncs_per_step": sum(syncs[1:]) / len(later)}))
-    for k in range(RAMP_STEPS):
+    for k in range(FROZEN_STEPS):
         frozen, _ = timestep(frozen, Hs, k * dt, dt, alg)
-    err_frozen = max(abs(a - b) for a, b in zip(centre(frozen), ref[-1]))
-    log(f"[window] b: after {RAMP_STEPS} steps the centre's error is "
-        f"{worst:.2e} at worst with co-evolving boundaries, {err_frozen:.2e} "
-        "with frozen ones (printed, not gated); K1 launches in this leg: "
-        f"{launches}")
+    err_frozen = max(abs(a - b) for a, b in zip(centre(frozen),
+                                                ref[FROZEN_STEPS - 1]))
+    log(f"[window] b: over {RAMP_STEPS} steps the centre's error is "
+        f"{worst:.2e} at worst with co-evolving boundaries; after "
+        f"{FROZEN_STEPS} steps {err_frozen:.2e} with frozen ones (printed, "
+        f"not gated); K1 launches in this leg: {launches}")
     if launches != 0:
         raise RuntimeError("leg (b): complex64 TDVP launched K1")
 
@@ -2803,6 +2885,711 @@ def phase_windows():
     return launches, t
 
 
+def _gate(tag, name, err, tol):
+    """Print a gate's value beside its tolerance; fail the run if it
+    misses."""
+    log(f"[{tag}] {name}: {err:.3e} (tol {tol})")
+    if not err <= tol:
+        raise RuntimeError(f"[{tag}] {name} misses its tolerance")
+
+
+def _idle_share(tag, name, fn):
+    """One more run of fn timed plainly, then under torch.profiler: its
+    device busy time and idle share, printed."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    busy, n_dev, _ = _device_busy_ms(fn)
+    log(f"[{tag}] {name}: {plain:.1f} ms plainly; under torch.profiler " + (
+        f"{n_dev} kernels and copies, busy {busy:.1f} ms, idle share "
+        f"{1 - busy / plain:.1%}" if busy else
+        "no device time in the trace: idle share not measured"))
+
+
+def _round_marks():
+    """A finalize hook that records (time, host syncs) after every round or
+    sweep, with the list it fills (one entry before the run)."""
+    import torch
+    from mpskit_tpu_torch.utils import sync
+
+    torch.cuda.synchronize()
+    marks = [(time.perf_counter(), sync.count)]
+
+    def mark(it, psi, H):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), sync.count))
+    return mark, marks
+
+
+def _intervals(marks):
+    return ([marks[k][0] - marks[k - 1][0] for k in range(1, len(marks))],
+            [marks[k][1] - marks[k - 1][1] for k in range(1, len(marks))])
+
+
+@contextlib.contextmanager
+def _launches_in_rounds(k1):
+    """Reads K1's count at the entry and exit of every RS-DMRG round
+    (`rsdmrg._rs_round`: capture, segment sweeps, stitch), so that the
+    launches of the serial warmup sweeps and those of the segment sweeps
+    are told apart. Yields {"warmup": count before the first round,
+    "rounds": launches inside the rounds}."""
+    from mpskit_tpu_torch.algorithms import rsdmrg
+
+    inner = rsdmrg._rs_round
+    seen = {"warmup": None, "rounds": 0}
+
+    def counted(*args, **kw):
+        n0 = k1.launches
+        if seen["warmup"] is None:
+            seen["warmup"] = n0
+        out = inner(*args, **kw)
+        seen["rounds"] += k1.launches - n0
+        return out
+    rsdmrg._rs_round = counted
+    try:
+        yield seen
+    finally:
+        rsdmrg._rs_round = inner
+
+
+def _rs_dmrg():
+    """Leg (a): RealSpaceParallelDMRG of the TFIM at L=32 D=512 float32
+    through find_groundstate, K1 launches of the warmup sweeps and of the
+    segment sweeps counted apart; then the same rounds with the stitch in
+    float32 (printed, the measurement behind the auto stitch_f64); then
+    one round with no warmup from a fresh random state, whose segment
+    sweeps' probes start far from convergence and take K1."""
+    import torch
+    from mpskit_tpu_torch import (
+        FiniteMPS, RealSpaceParallelDMRG, expectation_value,
+        find_groundstate, transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    H = transverse_field_ising_lattice(g=RS_G)
+    e0 = tfim_open_chain_e0(RS_L, RS_G)
+    out = {}
+    for stitch in (None, False):
+        gen = torch.Generator(device="cuda").manual_seed(53)
+        psi = FiniteMPS.random(RS_L, 2, RS_D, torch.float32, "cuda", gen)
+        mark, marks = _round_marks()
+        k1.launches = 0
+        with _launches_in_rounds(k1) as split:
+            psi, envs, eps = find_groundstate(psi, H, RealSpaceParallelDMRG(
+                nseg=RS_NSEG, warmup=2, krylovdim=10, eig_maxrestarts=2,
+                maxiter=RS_ROUNDS, finalize=mark, verbosity=0,
+                stitch_f64=stitch))
+            torch.cuda.synchronize()
+        launches = k1.launches
+        E = float(expectation_value(psi, H, envs=envs))
+        times, syncs = _intervals(marks)
+        name = "float64 stitch (auto)" if stitch is None else "float32 stitch"
+        for k, (t, c) in enumerate(zip(times, syncs), 1):
+            log(f"[rs] a: {name} round {k}{' (with the 2 warmup sweeps)' if k == 1 else ''}: "
+                f"{t:.3f} s, {c} host syncs")
+        rel = abs(E - e0) / abs(e0)
+        log(f"[rs] a: {name}: {len(times)} rounds, E {E:.8f}, closed form "
+            f"{e0:.8f}, rel err {rel:.3e}, eps {eps:.2e}, K1 launches "
+            f"{launches}: {split['warmup']} in the 2 warmup sweeps, "
+            f"{split['rounds']} in the rounds' segment sweeps")
+        out[stitch] = (psi, envs, E, rel, times, syncs, launches, split)
+    psi, envs, E, rel, times, syncs, launches, split = out[None]
+    _idle_share("rs", "a: one more round from the result", lambda: (
+        find_groundstate(psi, H, RealSpaceParallelDMRG(
+            nseg=RS_NSEG, warmup=0, krylovdim=10, eig_maxrestarts=2,
+            maxiter=1, verbosity=0))))
+    later = times[1:] or times
+    log(json.dumps({
+        "metric": f"rsdmrg_round_time_tfim_L{RS_L}_D{RS_D}_float32",
+        "value": sum(later) / len(later), "unit": "s",
+        "rounds": len(times), "host_syncs_per_round":
+        sum(syncs[1:] or syncs) / len(later), "nseg": RS_NSEG}))
+    if not (torch.isfinite(psi.AC).all() and psi.ARs.shape ==
+            (RS_L, RS_D, 2, RS_D)):
+        raise RuntimeError("leg (a): the RS-DMRG state is not finite")
+    _gate("rs", "a: RS-DMRG energy, relative to the closed form", rel,
+          E_TOL_F32)
+    if launches <= 0:
+        raise RuntimeError("leg (a): RS-DMRG never launched K1")
+    if split["warmup"] + split["rounds"] != launches:
+        raise RuntimeError("leg (a): the warmup and round launches do not "
+                           "add up to the run's")
+
+    # the segment sweeps from a cold start: one round, no warmup
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    cold = FiniteMPS.random(RS_L, 2, RS_D, torch.float32, "cuda", gen)
+    k1.launches = 0
+    with _launches_in_rounds(k1) as cold_split:
+        cold, cold_envs, _ = find_groundstate(cold, H, RealSpaceParallelDMRG(
+            nseg=RS_NSEG, warmup=0, krylovdim=10, eig_maxrestarts=2,
+            maxiter=1, verbosity=0))
+        torch.cuda.synchronize()
+    segment_launches = k1.launches
+    E_cold = float(expectation_value(cold, H, envs=cold_envs))
+    log(f"[rs] a: one round with no warmup from a random state: K1 "
+        f"launches {segment_launches} (all in the segment sweeps: "
+        f"{cold_split['rounds']}), E {E_cold:.8f} (closed form {e0:.8f})")
+    if not np.isfinite(E_cold):
+        raise RuntimeError("leg (a): the cold-start round's energy is not "
+                           "finite")
+    if segment_launches <= 0 or cold_split["rounds"] != segment_launches:
+        raise RuntimeError("leg (a): RS-DMRG's segment sweeps never "
+                           "launched K1")
+    return H, psi, envs, {"launches": launches,
+                          "warmup": split["warmup"],
+                          "rounds": split["rounds"],
+                          "segments_cold": segment_launches}
+
+
+def _rs_dmrg2():
+    """Leg (b): RS-DMRG2 (two-site segment sweeps, truncdim(64)) of the
+    same chain at D=64 float64."""
+    import torch
+    from mpskit_tpu_torch import (
+        FiniteMPS, RealSpaceParallelDMRG, expectation_value,
+        find_groundstate, transverse_field_ising_lattice, truncdim,
+    )
+
+    H = transverse_field_ising_lattice(g=RS_G)
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    psi = FiniteMPS.random(RS_L, 2, RS2_D, torch.float64, "cuda", gen)
+    mark, marks = _round_marks()
+    psi, envs, eps = find_groundstate(psi, H, RealSpaceParallelDMRG(
+        nseg=RS_NSEG, two_site=True, trscheme=truncdim(RS2_D), maxiter=30,
+        finalize=mark, verbosity=0))
+    times, syncs = _intervals(marks)
+    E = float(expectation_value(psi, H, envs=envs))
+    log(f"[rs] b: RS-DMRG2 L={RS_L} D={RS2_D} float64: {len(times)} rounds "
+        f"of {np.mean(times):.3f} s mean, {np.mean(syncs):.0f} host syncs "
+        f"each, E {E:.12f}, eps {eps:.2e}")
+    _gate("rs", "b: RS-DMRG2 |E - closed form|",
+          abs(E - tfim_open_chain_e0(RS_L, RS_G)), RS2_TOL)
+    return psi
+
+
+def _param_scan():
+    """Leg (c): scan_groundstate_vumps over g in SCAN_GS at D=256 float32
+    from seeded random states; each member iteration timed from outside
+    (synchronized), so a lockstep iteration is the sum over members."""
+    import torch
+    from mpskit_tpu_torch import (
+        VUMPS, InfiniteMPS, scan_groundstate_vumps,
+        transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.algorithms import paramscan
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    psis = [InfiniteMPS.random(1, 2, SCAN_D, torch.float32, "cuda", gen)
+            for _ in SCAN_GS]
+    Hs = [transverse_field_ising_lattice(g=g) for g in SCAN_GS]
+    calls = []
+    iterate = paramscan._vumps_iteration_impl
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), sync.count
+        out = iterate(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t0, sync.count - c0))
+        return out
+
+    k1.launches = 0
+    t0 = time.perf_counter()
+    with _patched(paramscan, _vumps_iteration_impl=timed):
+        res = scan_groundstate_vumps(psis, Hs, VUMPS(
+            tol=1e-6, maxiter=SCAN_ITERS, krylovdim=10, eig_maxrestarts=2,
+            gauge_tol=1e-8, verbosity=0))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    B = len(SCAN_GS)
+    its = [(sum(c[0] for c in calls[k: k + B]),
+            sum(c[1] for c in calls[k: k + B]))
+           for k in range(0, len(calls), B)]
+    later = its[1:] or its
+    log(json.dumps({
+        "metric": f"vumps_scan_iteration_time_tfim_B{B}_D{SCAN_D}_float32",
+        "value": sum(t for t, _ in later) / len(later), "unit": "s",
+        "iterations": res.iterations,
+        "host_syncs_per_iteration": sum(c for _, c in later) / len(later)}))
+    es = res.energies.cpu().numpy().real
+    log(f"[rs] c: scan of {B} members, {res.iterations} lockstep "
+        f"iterations, {total:.1f} s with the closing gauge fix and "
+        f"environments; eps " + ", ".join(
+            f"{e:.2e}" for e in res.eps.cpu().numpy()))
+    _idle_share("rs", "c: one more lockstep iteration (with the closing)",
+                lambda: scan_groundstate_vumps(res.psis, Hs, VUMPS(
+                    maxiter=1, krylovdim=10, eig_maxrestarts=2,
+                    gauge_tol=1e-8, verbosity=0)))
+    for g, e in zip(SCAN_GS, es):
+        log(f"[rs] c: g={g}: e {e:.8f}, exact {tfim_density(g):.8f}")
+        _gate("rs", f"c: g={g} |e - exact density|",
+              abs(e - tfim_density(g)), SCAN_TOL)
+    if k1.launches != 0:
+        raise RuntimeError("leg (c): the parameter scan launched K1")
+    return res
+
+
+def _compat_and_plots(H, psi, envs, psi2, scan):
+    """Leg (d): the compat surface on leg (a)'s state and the plot data on
+    the card against the CPU."""
+    import torch
+    from mpskit_tpu_torch import (
+        FiniteMPS, InfiniteMPS, TransferMatrix, entanglement_plot_data,
+        environments, leftenv, rightenv, transfer_left, transfer_plot_data,
+    )
+
+    env2 = environments(psi, H)
+    rel = 0.0
+    for i in range(psi.length):
+        for a, b in ((leftenv(env2, i, psi), envs.GLs[i]),
+                     (rightenv(env2, i, psi), envs.GRs[i + 1])):
+            rel = max(rel, float((a - b).norm() / b.norm()))
+    _gate("rs", "d: environments / leftenv / rightenv against the sweep's",
+          rel, COMPAT_TOL32)
+    gen = torch.Generator(device="cuda").manual_seed(67)
+    v = torch.randn((RS_D, RS_D), generator=gen, device="cuda")
+    A = psi.ARs[RS_L // 2]
+    ref = transfer_left(v, A, A)
+    _gate("rs", "d: TransferMatrix against transfer_left (relative)",
+          float((TransferMatrix(A, A)(v) - ref).norm() / ref.norm()),
+          COMPAT_TOL32)
+    ent = [entanglement_plot_data(p, RS_L // 2) for p in (
+        psi2, FiniteMPS(*(t.cpu() for t in (psi2.ALs, psi2.ARs, psi2.AC)),
+                        psi2.center))]
+    # the data drop values below 1e-30, where the two devices may differ
+    n = max(len(e) for e in ent)
+    ent = [np.pad(e, (0, n - len(e))) for e in ent]
+    _gate("rs", "d: entanglement_plot_data card against CPU",
+          float(np.abs(ent[0] - ent[1]).max()), PLOT_CARD_TOL)
+    member = InfiniteMPS(*(t[1].double() for t in (
+        scan.psis.AL, scan.psis.AR, scan.psis.AC, scan.psis.C)))
+    radii = [transfer_plot_data(p, num=5)[1] for p in (member, InfiniteMPS(
+        *(t.cpu() for t in (member.AL, member.AR, member.AC, member.C))))]
+    _gate("rs", "d: transfer_plot_data |lambda| card against CPU",
+          float(np.abs(np.sort(radii[0]) - np.sort(radii[1])).max()),
+          PLOT_CARD_TOL)
+
+
+def phase_rsdmrg():
+    """Phase 19: segment-parallel DMRG, its two-site form, the parameter
+    scan and the compat / plotting surface. Returns RS-DMRG's K1
+    launches: {"launches": leg (a)'s run, "warmup" and "rounds": its
+    warmup sweeps' and its rounds' shares, "segments_cold": the cold-start
+    round's}."""
+    legs = {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        legs[name] = time.perf_counter() - t0
+        return out
+
+    H, psi, envs, launches = leg("a", _rs_dmrg)
+    psi2 = leg("b", _rs_dmrg2)
+    scan = leg("c", _param_scan)
+    leg("d", _compat_and_plots, H, psi, envs, psi2, scan)
+    log("[rs] seconds per leg: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()))
+    return launches
+
+
+def _charge_leak(spsi):
+    """The largest entry outside the charge mask over AC, the left-gauged
+    tensors left of the center and the right-gauged ones right of it."""
+    import torch
+
+    m = torch.as_tensor(spsi.masks, device=spsi.state.device)
+    st = spsi.state
+    c = st.center
+    parts = [st.AC * ~m[c]]
+    if c > 0:
+        parts.append(st.ALs[:c] * ~m[:c])
+    if c < st.length - 1:
+        parts.append(st.ARs[c + 1:] * ~m[c + 1:])
+    return max(float(p.abs().max()) for p in parts)
+
+
+def _occupations(psi):
+    """<n_i> at every site (charge 1 = physical index 1): the weight of
+    index 1 in the center tensor as the center walks left to right, one
+    gauge move per site and one host read in all."""
+    import torch
+
+    p, out = psi.move_center(0), []
+    for i in range(psi.length):
+        p = p.move_center(i)
+        w = p.AC.abs() ** 2
+        out.append(w[:, 1].sum() / w.sum())
+    return torch.stack(out).cpu().numpy()
+
+
+def _u1_dmrg():
+    """Leg (a): U(1) one-site DMRG of the XX chain in the sector N=16 at
+    L=32 D=512 float32 through find_groundstate, K1 (w=4) on the first
+    restarts; each sweep timed from outside."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, SymmetricFiniteMPS, expectation_value, find_groundstate,
+        xx_chain_with_field,
+    )
+    from mpskit_tpu_torch.algorithms import dmrg
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.utils import sync
+
+    H = xx_chain_with_field(h=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    spsi = SymmetricFiniteMPS.random(U1_L, (0, 1), U1_D, U1_N,
+                                     torch.float32, None, "cuda", gen)
+    sweep = dmrg._dmrg_sweep_impl
+    rows = []
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), sync.count
+        out = sweep(*args, **kwargs)
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, sync.count - c0))
+        return out
+
+    k1.launches = 0
+    with _patched(dmrg, _dmrg_sweep_impl=timed):
+        spsi, envs, eps = find_groundstate(spsi, H, DMRG(
+            krylovdim=10, eig_maxrestarts=2, tol=1e-6, maxiter=U1_SWEEPS,
+            verbosity=0))
+    torch.cuda.synchronize()
+    launches = k1.launches
+    for k, (t, c) in enumerate(rows, 1):
+        log(f"[u1] a: sweep {k}: {t:.3f} s, {c} host syncs")
+    later = rows[1:] or rows
+    log(json.dumps({
+        "metric": f"u1_dmrg_sweep_time_xx_L{U1_L}_D{U1_D}_float32",
+        "value": sum(t for t, _ in later) / len(later), "unit": "s",
+        "sweeps": len(rows),
+        "host_syncs_per_sweep": sum(c for _, c in later) / len(later),
+        "eps": eps}))
+    E = float(expectation_value(spsi.state, H, envs=envs))
+    _idle_share("u1", "a: one more sweep from the result", lambda: (
+        find_groundstate(spsi, H, DMRG(krylovdim=10, eig_maxrestarts=2,
+                                       maxiter=1, verbosity=0))))
+    e_ex = float(np.sum(-2 * np.cos(np.arange(1, U1_N + 1) * np.pi
+                                    / (U1_L + 1))))
+    N = float(_occupations(spsi.state).sum())
+    log(f"[u1] a: XX chain L={U1_L} D={U1_D} N={U1_N} float32: E {E:.8f}, "
+        f"exact {e_ex:.8f}, <N> {N:.8f}, eps {eps:.2e}, K1 launches "
+        f"{launches}")
+    _gate("u1", "a: energy, relative to the free-fermion sum",
+          abs(E - e_ex) / abs(e_ex), U1_TOL)
+    _gate("u1", "a: |<N> - 16|", abs(N - U1_N), U1_N_TOL)
+    _gate("u1", "a: largest entry outside the charge mask",
+          _charge_leak(spsi), 0.0)
+    if launches <= 0:
+        raise RuntimeError("leg (a): the U(1) sweep never launched K1")
+    return launches
+
+
+def _u1_dmrg2():
+    """Leg (b): sector-resolved DMRG2 then the one-site sector DMRG at
+    D=128 float64 in N=16 and N=17 (the N=17 DMRG2 split by
+    synchronizations into eigensolves and per-sector SVD splits), the
+    merged sector spectrum and the entropy, and the charged quasiparticles
+    above the h=4 vacuum."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, DMRG2, QuasiparticleAnsatz, SymmetricFiniteMPS,
+        entanglement_spectrum, entropy_profile, excitations,
+        expectation_value, find_groundstate, sector_entanglement_spectrum,
+        xx_chain_with_field,
+    )
+    from mpskit_tpu_torch.symmetry import charges
+
+    H = xx_chain_with_field(h=0.0)
+    gen = torch.Generator(device="cuda").manual_seed(73)
+    energies, states = {}, {}
+    for N in (U1_N, U1_N + 1):
+        spsi = SymmetricFiniteMPS.random(U1_L, (0, 1), U1_D2, N,
+                                         torch.float64, None, "cuda", gen)
+        alg2 = DMRG2(tol=1e-10, maxiter=U1_DMRG2_SWEEPS, verbosity=0)
+        if N == U1_N + 1:
+            box = {}
+
+            def run():
+                box["out"] = find_groundstate(spsi, H, alg2)
+            total, parts = _split_by_sync(run, charges, {
+                "eigsh_smallest": "eigensolves",
+                "_sector_split": "per-sector SVD splits",
+                "transfer_left_mpo": "environment pushes",
+                "transfer_right_mpo": "environment pushes"})
+            spsi, _, eps2 = box["out"]
+            log(f"[u1] b: N={N} DMRG2 ({U1_DMRG2_SWEEPS} sweeps) split "
+                f"({total:.1f} ms): " + "; ".join(
+                    f"{k} {t:.1f} ms ({t / total:.1%}, {c} syncs)"
+                    for k, (t, c) in parts.items()))
+        else:
+            t0 = time.perf_counter()
+            spsi, _, eps2 = find_groundstate(spsi, H, alg2)
+            log(f"[u1] b: N={N} DMRG2 ({U1_DMRG2_SWEEPS} sweeps) "
+                f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        spsi, envs, eps = find_groundstate(spsi, H, DMRG(
+            tol=1e-10, maxiter=20, verbosity=0))
+        energies[N] = float(expectation_value(spsi.state, H, envs=envs))
+        states[N] = spsi
+        live = [int((np.asarray(c) < 10**5).sum()) for c in
+                spsi.bond_charges]
+        log(f"[u1] b: N={N}: E {energies[N]:.12f} (DMRG2 eps {eps2:.1e}, "
+            f"DMRG eps {eps:.1e}, {time.perf_counter() - t0:.1f} s), live "
+            f"labels at the middle bond {live[U1_L // 2]}")
+    gap = energies[U1_N + 1] - energies[U1_N]
+    _gate("u1", "b: |E(17) - E(16) + 2 cos(17 pi / 33)|",
+          abs(gap + 2 * np.cos((U1_N + 1) * np.pi / (U1_L + 1))),
+          U1_GAP_TOL)
+    spsi = states[U1_N]
+    sec = sector_entanglement_spectrum(spsi, U1_L // 2)
+    merged = np.sort(np.concatenate(list(sec.values())))[::-1]
+    plain = np.sort(entanglement_spectrum(spsi.state, U1_L // 2)
+                    .cpu().numpy())[::-1]
+    log(f"[u1] b: sectors at bond {U1_L // 2}: " + ", ".join(
+        f"{q}: {len(v)}" for q, v in sec.items()))
+    _gate("u1", "b: merged sector spectrum against entanglement_spectrum",
+          float(np.abs(merged - plain[: len(merged)]).max()
+                + np.abs(plain[len(merged):]).sum()), U1_SPEC_TOL)
+    S = entropy_profile(spsi.state).cpu().numpy()
+    _gate("u1", "b: entropy at the middle bond against the exact one",
+          abs(S[U1_L // 2 - 1] - _free_fermion_exact(U1_L)[1][U1_L // 2 - 1]),
+          U1_S_TOL)
+
+    Hh = xx_chain_with_field(h=U1_QP_H)
+    vac = SymmetricFiniteMPS.random(U1_L, (0, 1), U1_QP_D, 0, torch.float64,
+                                    None, "cuda", gen)
+    vac, _, _ = find_groundstate(vac, Hh, DMRG(tol=1e-11, maxiter=20,
+                                               verbosity=0))
+    t0 = time.perf_counter()
+    es, _ = excitations(Hh, QuasiparticleAnsatz(tol=1e-10), vac, sector=1,
+                        num=3, generator=torch.Generator(device="cuda")
+                        .manual_seed(79))
+    got = np.sort(es.numpy())
+    ks = np.pi * np.arange(1, U1_L + 1) / (U1_L + 1)
+    want = np.sort(U1_QP_H - 2 * np.cos(ks))[:3]
+    log(f"[u1] b: charged QP on the h={U1_QP_H} vacuum L={U1_L} "
+        f"D={U1_QP_D}: {got} against {want}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    _gate("u1", "b: charged QP against h - 2 cos(n pi / 33)",
+          float(np.abs(got - want).max()), U1_QP_TOL)
+
+
+def _u1_tdvp():
+    """Leg (c): the quench XX -> XXZ(delta=0.5) of an N=16 ground state at
+    D=256 in complex64, symmetric and unsymmetric from the same state."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, TDVP, SymmetricFiniteMPS, expectation_value, find_groundstate,
+        heisenberg_XXZ, timestep, xx_chain_with_field,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.models.spins import spinmatrices
+    from mpskit_tpu_torch.utils import sync
+
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    spsi = SymmetricFiniteMPS.random(U1_L, (0, 1), U1_TDVP_D, U1_N,
+                                     torch.float32, None, "cuda", gen)
+    spsi, _, _ = find_groundstate(spsi, xx_chain_with_field(h=0.0), DMRG(
+        krylovdim=10, eig_maxrestarts=2, tol=1e-6, maxiter=8, verbosity=0))
+    _, _, Sz, _ = spinmatrices(0.5)
+    affine = np.allclose(2 * np.real(np.diag(Sz)), 1 - 2 * np.array((0, 1)))
+    log(f"[u1] c: spin-1/2 basis: 2 Sz = {2 * np.real(np.diag(Sz))}, "
+        f"1 - 2 q = {1 - 2 * np.array((0, 1))}: charge (0, 1) is an affine "
+        f"map of 2 Sz: {affine}")
+    if not affine:
+        raise RuntimeError("leg (c): the basis order does not match")
+    start = _complex_start(spsi.state)[torch.complex64]
+    sym = SymmetricFiniteMPS(start, spsi.bond_charges, spsi.phys_charges)
+    plain = start
+    H1 = heisenberg_XXZ(spin=0.5, delta=0.5)
+    alg = TDVP(expalg_m=20, verbosity=0)
+    times, syncs = [], []
+    N0 = float(_occupations(start).sum())
+    worst = {"energy": 0.0, "<n_i>": 0.0, "N": 0.0}
+    k1.launches = 0
+    for k in range(U1_TDVP_STEPS):
+        t = k * U1_TDVP_DT
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), sync.count
+        sym, _ = timestep(sym, H1, t, U1_TDVP_DT, alg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        syncs.append(sync.count - c0)
+        plain, _ = timestep(plain, H1, t, U1_TDVP_DT, alg)
+        es = [complex(expectation_value(p, H1)).real
+              for p in (sym.state, plain)]
+        ns = [_occupations(p) for p in (sym.state, plain)]
+        worst["energy"] = max(worst["energy"],
+                              abs(es[0] - es[1]) / abs(es[1]))
+        worst["<n_i>"] = max(worst["<n_i>"],
+                             float(np.abs(ns[0] - ns[1]).max()))
+        worst["N"] = max(worst["N"], abs(float(ns[0].sum()) - N0))
+        log(f"[u1] c: step {k + 1}: {times[-1]:.3f} s, {syncs[-1]} host "
+            f"syncs; E symmetric {es[0]:.7f}, unsymmetric {es[1]:.7f}, "
+            f"<N> {ns[0].sum():.7f}")
+    launches = k1.launches
+    _idle_share("u1", "c: one more symmetric step", lambda: timestep(
+        sym, H1, U1_TDVP_STEPS * U1_TDVP_DT, U1_TDVP_DT, alg))
+    later = times[1:]
+    log(json.dumps({
+        "metric": f"u1_tdvp_step_time_xxz_L{U1_L}_D{U1_TDVP_D}_complex64",
+        "value": sum(later) / len(later), "unit": "s",
+        "steps": len(times), "host_syncs_per_step": sum(syncs[1:])
+        / len(later)}))
+    _gate("u1", "c: |E symmetric - unsymmetric| / |E| over the steps",
+          worst["energy"], U1_TDVP_TOL)
+    _gate("u1", "c: |<n_i> symmetric - unsymmetric| over the steps",
+          worst["<n_i>"], U1_TDVP_TOL)
+    _gate("u1", "c: |<N>(t) - <N>(0)|", worst["N"], U1_TDVP_TOL)
+    _gate("u1", "c: largest entry outside the charge mask",
+          _charge_leak(sym), 0.0)
+    if launches != 0:
+        raise RuntimeError("leg (c): complex64 TDVP launched K1")
+
+
+def _u1_infinite():
+    """Leg (d): sector VUMPS of the XXX chain (two-site cell, charges +-1)
+    at D=128 float64 with its sector transfer spectra, and the Z_2 gap of
+    the parity TFIM at D=48. Returns the XXX state and its energy
+    density."""
+    import torch
+    from mpskit_tpu_torch import (
+        VUMPS, QuasiparticleAnsatz, SymmetricInfiniteMPS, excitations,
+        find_groundstate, heisenberg_XXX, transfer_spectrum,
+        transverse_field_ising_parity,
+    )
+
+    H = heisenberg_XXX(spin=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(89)
+    spsi = SymmetricInfiniteMPS.random(2, (1, -1), U1_INF_D, torch.float64,
+                                       None, "cuda", gen)
+    t0 = time.perf_counter()
+    spsi, envs, eps = find_groundstate(spsi, H, VUMPS(tol=1e-8, maxiter=100,
+                                                      verbosity=0))
+    e = float(envs.e_density)
+    e_ex = 1 - 4 * np.log(2)
+    # the critical chain's |lambda_1| is 0.992 at D=128: 60 Arnoldi steps
+    # left |lambda_0| 9.3e-11 from 1 (H100 80GB HBM3, 700 W)
+    lams = {q: transfer_spectrum(spsi, num=3, krylovdim=100, sector=q)
+            .cpu().numpy() for q in (0, 2)}
+    log(f"[u1] d: XXX two-site cell D={U1_INF_D} float64: e {e:.10f}, "
+        f"1 - 4 ln 2 = {e_ex:.10f} (gap {e - e_ex:.3e}), eps {eps:.2e}, "
+        f"{time.perf_counter() - t0:.1f} s; |lambda| sector 0 "
+        f"{np.abs(lams[0])}, sector 2 {np.abs(lams[2])}")
+    _gate("u1", "d: |e - (1 - 4 ln 2)|", abs(e - e_ex), U1_INF_TOL)
+    _, C_mask = spsi.device_masks()
+    _gate("u1", "d: largest C entry outside its mask",
+          float((spsi.state.C * ~C_mask).abs().max()), 1e-12)
+    _gate("u1", "d: ||lambda_0| - 1| in sector 0",
+          abs(abs(lams[0][0]) - 1), 1e-10)
+    _gate("u1", "d: leading |lambda| in sector 2 (below 1)",
+          abs(lams[2][0]), 1 - 1e-6)
+
+    Hz = transverse_field_ising_parity(g=Z2_G)
+    z2 = SymmetricInfiniteMPS.random(1, (0, 1), Z2_D, torch.float64, 2,
+                                     "cuda", gen)
+    z2, _, eps_z = find_groundstate(z2, Hz, VUMPS(tol=1e-10, maxiter=100,
+                                                  verbosity=0))
+    t0 = time.perf_counter()
+    es, _ = excitations(Hz, QuasiparticleAnsatz(tol=1e-10), 0.0, z2,
+                        sector=1, generator=torch.Generator(device="cuda")
+                        .manual_seed(97))
+    gap = float(es[0, 0])
+    log(f"[u1] d: Z_2 parity TFIM g={Z2_G} D={Z2_D}: VUMPS eps {eps_z:.1e}, "
+        f"sector-1 QP at p=0 {gap:.10f} (exact 2|g - 1| = "
+        f"{2 * abs(Z2_G - 1):.1f}), {time.perf_counter() - t0:.1f} s")
+    _gate("u1", "d: |Z_2 gap - 2|g - 1||", abs(gap - 2 * abs(Z2_G - 1)),
+          Z2_GAP_TOL)
+    return H, spsi, e
+
+
+def _u1_expand_and_checkpoints(H, spsi, e_before):
+    """Leg (e): changebonds_symmetric (OptimalExpand by U1_EXPAND) on leg
+    (d)'s state, then VUMPS at the larger D; checkpoints of a Z_2
+    SymmetricFiniteMPS and of leg (d)'s state."""
+    import tempfile
+
+    import torch
+    from mpskit_tpu_torch import (
+        VUMPS, OptimalExpand, SymmetricFiniteMPS, find_groundstate,
+        load_state, save_state,
+    )
+    from mpskit_tpu_torch.environments.infinite_ham import (
+        hamiltonian_environments,
+    )
+    from mpskit_tpu_torch.symmetry import changebonds_symmetric
+    from mpskit_tpu_torch.utils.serialize import _leaves
+
+    big = changebonds_symmetric(spsi, H, alg=OptimalExpand(dims=U1_EXPAND))
+    A_mask, C_mask = big.device_masks()
+    leak = max(float((big.state.AL * ~A_mask).abs().max()),
+               float((big.state.C * ~C_mask).abs().max()))
+    e_big = float(hamiltonian_environments(big.state, H).e_density)
+    big, envs, _ = find_groundstate(big, H, VUMPS(tol=1e-8, maxiter=10,
+                                                  verbosity=0))
+    e_after = float(envs.e_density)
+    added = [sorted(set(np.asarray(c)[U1_INF_D:].tolist()))
+             for c in big.bond_charges]
+    log(f"[u1] e: OptimalExpand(+{U1_EXPAND}): D {big.state.D}, new labels "
+        f"{added}; e before {e_before:.10f}, expanded {e_big:.10f}, after "
+        f"10 VUMPS iterations {e_after:.10f}")
+    _gate("u1", "e: largest entry outside the expanded masks", leak, 0.0)
+    _gate("u1", "e: e after expansion and VUMPS above e before",
+          max(e_after - e_before, 0.0), 0.0)
+    gen = torch.Generator(device="cuda").manual_seed(101)
+    z2 = SymmetricFiniteMPS.random(16, (0, 1), 32, 0, torch.float64, 2,
+                                   "cuda", gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, state in (("Z_2 finite", z2), ("U(1) infinite", spsi)):
+            path = str(Path(tmp) / "s.npz")
+            save_state(path, state)
+            back = load_state(path, device="cuda")
+            same = (type(back) is type(state)
+                    and back.modulus == state.modulus
+                    and back.phys_charges == state.phys_charges
+                    and all(np.array_equal(a, b) for a, b in
+                            zip(back.bond_charges, state.bond_charges))
+                    and all(a.device == b.device and torch.equal(a, b)
+                            for a, b in zip(_leaves(back), _leaves(state))))
+            masks = (back.masks, state.masks)
+            same = same and all(np.array_equal(a, b) for a, b in zip(
+                *(m if isinstance(m, tuple) else (m,) for m in masks)))
+            log(f"[u1] e: {name} checkpoint (modulus {state.modulus}) "
+                f"reloaded bit for bit, labels, masks and modulus: {same}")
+            if not same:
+                raise RuntimeError(f"leg (e): the {name} checkpoint changed")
+
+
+def phase_symmetric():
+    """Phase 20: the abelian symmetric states. Returns the U(1) sweep's K1
+    launches."""
+    legs = {}
+
+    def leg(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        legs[name] = time.perf_counter() - t0
+        return out
+
+    launches = leg("a", _u1_dmrg)
+    leg("b", _u1_dmrg2)
+    leg("c", _u1_tdvp)
+    H, spsi, e = leg("d", _u1_infinite)
+    leg("e", _u1_expand_and_checkpoints, H, spsi, e)
+    log("[u1] seconds per leg: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()))
+    return launches
+
+
 def phase_measure():
     """Phase 17: the measurement surface on three ground states with exact
     oracles, and K1 at leg (a)'s shape (w=4) and on its general path."""
@@ -2858,6 +3645,8 @@ def main():
     launches_boundary = timed(phase_boundary)
     launches_measure, k1_more = timed(phase_measure)
     launches_window, k1_window = timed(phase_windows)
+    launches_rsdmrg = timed(phase_rsdmrg)
+    launches_u1 = timed(phase_symmetric)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -2883,7 +3672,12 @@ def main():
         "window_D256_graph_ms": k1_window["graph_ms"],
         "window_D256_plain_ms": k1_window["plain_ms"],
         "window_D256_max_abs_err": k1_window["max_abs_err"],
-        "window_D256_bound_ms": k1_window["bound_ms"]}]}))
+        "window_D256_bound_ms": k1_window["bound_ms"],
+        "launches_rsdmrg": launches_rsdmrg["launches"],
+        "launches_rsdmrg_warmup": launches_rsdmrg["warmup"],
+        "launches_rsdmrg_rounds": launches_rsdmrg["rounds"],
+        "launches_rsdmrg_segments_cold": launches_rsdmrg["segments_cold"],
+        "launches_u1": launches_u1}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

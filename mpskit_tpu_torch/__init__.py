@@ -43,13 +43,22 @@ sums at the midpoint), expectation_value, variance and the entanglement
 spectrum, the per-summand LazySum environments, dynamical DMRG
 (`propagator` with NaiveInvert and Jeckelmann), thermal purifications,
 `save_state` / `load_state` in the JAX package's .npz layout, and
-PeriodicArray. The package imports torch and never jax; the JAX package stays the reference the
-tests hold it to."""
+PeriodicArray. Slice 11 adds segment-parallel DMRG (RealSpaceParallelDMRG,
+its segments a host loop), parameter scans of VUMPS ground states, the
+reference-name compatibility surface (`compat.py`), the plotting data,
+and the abelian (U(1) / Z_n) symmetric states of `symmetry/`: bond charge
+labels and masks, SymmetricFiniteMPS and SymmetricInfiniteMPS, the sector
+DMRG, DMRG2 and VUMPS, sector entanglement spectra, sector-aware bond
+expansion, and the symmetric branches of timestep, excitations (sector=),
+transfer_spectrum (sector=) and the checkpoints. The package imports
+torch and never jax; the JAX package stays the reference the tests hold
+it to."""
 
-from . import models
+from . import config, models
+from .config import Defaults
 from .algorithms import (
     DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VOMPS, VUMPS, WI, WII,
-    DynamicalDMRG, FiniteExcited, FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2,
+    ChainedAlg, DynamicalDMRG, RealSpaceParallelDMRG, ScanResult, UnionAlg, FiniteExcited, FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2,
     GradientGrassmann, Jeckelmann, NaiveInvert, OptimalExpand,
     QuasiparticleAnsatz, RandExpand, SvdCut, TaylorCluster,
     VUMPS_Boundary, VUMPSSvdCut, approximate, calc_galerkin, changebonds,
@@ -63,8 +72,9 @@ from .algorithms import (
     leading_boundary, lift_densempo, lift_hamiltonian, make_time_mpo,
     marek_gap, periodic_boundary_conditions,
     periodic_boundary_conditions_densempo, propagator, purification_mps,
-    string_correlator, thermal_expectation, thermal_state, time_evolve,
-    timestep, transfer_spectrum, variance,
+    scan_groundstate_vumps, stack_hamiltonians, string_correlator,
+    thermal_expectation, thermal_state, time_evolve, timestep,
+    transfer_spectrum, variance,
 )
 from .environments.lazysum_env import (
     MultipleEnvironments, lazysum_ac_apply, lazysum_c_apply,
@@ -84,6 +94,7 @@ from .models import (
 from .models.statmech import (
     classical_ising, finite_classical_ising, hard_hexagon, sixvertex,
 )
+from .operators.apply import apply_densempo_finite, apply_densempo_infinite
 from .operators.mpo import DenseMPO, MPOHamiltonian, mpo_to_mps, mps_to_mpo
 from .operators.lazysum import (
     LazySum, MultipliedOperator, TimedOperator, UntimedOperator,
@@ -107,4 +118,35 @@ from .tensors.ops import (
     rightnull, rightorth, svd_truncated, truncbelow, truncdim, truncerr,
 )
 from .utils.periodic import PeriodicArray, PeriodicVector
+from .utils.plotting import (
+    entanglement_plot, entanglement_plot_data, transfer_plot,
+    transfer_plot_data,
+)
 from .utils.serialize import load_state, save_state
+
+# the reference-name surface; `environments` (the function) is bound after
+# the subpackage of the same name was imported, as in the JAX package
+from . import compat
+from .compat import (
+    MPOTensor, MPSBondTensor, MPSTensor, TransferMatrix, add_util_leg,
+    effective_excitation_hamiltonian, environments, left_virtualspace,
+    leftenv, max_Ds, physicalspace, right_virtualspace, rightenv,
+    transfer_left, transfer_right, uniform_leftorth, uniform_rightorth,
+)
+
+entanglementplot = entanglement_plot
+transferplot = transfer_plot
+
+# abelian symmetry (charge-sector states)
+from . import symmetry
+from .symmetry import (
+    SymmetricFiniteMPS, SymmetricInfiniteMPS, find_groundstate_symmetric,
+    find_groundstate_symmetric_infinite, sector_entanglement_spectrum,
+)
+
+# the reference's sparse FSM container is MPOHamiltonian's dense stacked
+# FSM; QP is the union of the quasiparticle containers, for isinstance()
+SparseMPO = MPOHamiltonian
+QP = (LeftGaugedQP, RightGaugedQP, FiniteQP, FiniteQPRight)
+
+__version__ = "0.1.0"

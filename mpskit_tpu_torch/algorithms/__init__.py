@@ -7,7 +7,9 @@ boundaries (leading_boundary with VUMPS_Boundary, VOMPS or
 GradientGrassmann), the fitting of `approximate`, and the measurements:
 correlators, transfer spectra, variance, exact diagonalization, periodic
 boundary conditions and the fidelity susceptibility; window DMRG and
-TDVP, dynamical DMRG (`propagator`) and thermal purifications."""
+TDVP, dynamical DMRG (`propagator`) and thermal purifications;
+segment-parallel DMRG (RealSpaceParallelDMRG) and parameter scans of
+VUMPS ground states."""
 
 from .approximate import FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, approximate
 
@@ -33,7 +35,12 @@ from .excitations_statmech import (
 )
 from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
     find_groundstate_idmrg2
+from .paramscan import (
+    ScanResult, scan_groundstate_vumps, stack_hamiltonians, stack_states,
+    unstack_states,
+)
 from .propagator import DynamicalDMRG, Jeckelmann, NaiveInvert, propagator
+from .rsdmrg import RealSpaceParallelDMRG, find_groundstate_rsdmrg
 from .statmech import VOMPS, VUMPS_Boundary, leading_boundary
 from .tdvp import TDVP, TDVP2, timestep
 from .time_evolve import time_evolve

@@ -22,7 +22,7 @@ from ..environments.finite import (
 from ..linalg.lanczos import eigsh_smallest
 from ..states.finitemps import FiniteMPS, physical_bond_dims, support_mask
 from ..states.windowmps import WindowMPS
-from ..tensors.ops import leftorth_hybrid, rightorth_hybrid
+from ..tensors.ops import leftorth_hybrid, orth_in, rightorth_hybrid
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog
@@ -85,7 +85,8 @@ def _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth, use_fast):
 def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
                      restarts: int, GL0=None, GRL=None, masks=None,
                      bulk_flags=None, reorth: str = "local1",
-                     use_fast: bool = True, cheap_galerkin: bool = False):
+                     use_fast: bool = True, cheap_galerkin: bool = False,
+                     split_dtype=None):
     """One full DMRG sweep (L2R over sites 0..L-2, R2L over L-1..1),
     starting and ending with center = 0.
 
@@ -94,7 +95,15 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
     1 (the last solved), the largest per-site residual and the solver
     diagnostics (n_unconverged, worst_residual). GL0/GRL override the
     open-chain boundary environments; masks is the (L, D, d, D) support
-    mask, bulk_flags the host (bulkL, bulkR) of `bulk_rank_flags`."""
+    mask, bulk_flags the host (bulkL, bulkR) of `bulk_rank_flags`.
+
+    split_dtype: the dtype of the gauge moves' QR / LQ (default the
+    state's). A charge mask leaves rank-deficient blocks in an arbitrary
+    order, and a float32 Householder QR of them gives Q columns whose
+    off-mask part carries up to 2e-2 of the tensor, which masking Q then
+    drops (a float32 U(1) sweep of the XX chain at D=128 rose 0.1 in
+    energy from sweep to sweep; 9e-3 above its sector's energy at D=512
+    on the card); in float64 the loss is 1e-12."""
     L, D = ALs.shape[0], ALs.shape[1]
     w = Ws.shape[1]
     dtype, device = AC.dtype, AC.device
@@ -124,7 +133,7 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
                           use_fast)
         ACp = res.eigenvector * maskf[i]
         ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
-        AL, C = leftorth_hybrid(ACp, bool(bulkL[i]))
+        AL, C = orth_in(leftorth_hybrid, ACp, split_dtype, bool(bulkL[i]))
         AL = AL * maskf[i]
         if not cheap_galerkin:
             eps_dev.append(_galerkin_left(AL, ac_apply(GL, W, GR, ACp)))
@@ -145,7 +154,7 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
                           use_fast)
         ACp = res.eigenvector * maskf[i]
         ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
-        C, AR = rightorth_hybrid(ACp, bool(bulkR[i]))
+        C, AR = orth_in(rightorth_hybrid, ACp, split_dtype, bool(bulkR[i]))
         AR = AR * maskf[i]
         if not cheap_galerkin:
             eps_dev.append(_galerkin_right(AR, ac_apply(GL, W, GR, ACp)))

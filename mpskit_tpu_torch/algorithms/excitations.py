@@ -16,9 +16,11 @@ The JAX package vmaps the dispersion over momenta; here
 `excitations_infinite_batched` is `excitations_infinite`'s host loop over
 the momenta, every solve from the same seeded start vector unless a
 generator is given. A transfer MPO (DenseMPO) goes to
-`excitations_statmech.excitations_boundary`. The charge-sector
-(`sector=`), symmetric-state and reduced-MPO branches come with a later
-slice and raise NotImplementedError naming queue-1 item 11 (ROADMAP.md).
+`excitations_statmech.excitations_boundary`. A charge sector (`sector=`)
+restricts the search on a SymmetricFiniteMPS (in B-space) or a
+SymmetricInfiniteMPS (in X-space); the reduced-MPO branch comes with a
+later slice and raises NotImplementedError naming queue-1 item 11
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -35,20 +37,18 @@ from ..environments.finite import (
 )
 from ..environments.infinite_ham import hamiltonian_environments
 from ..environments.qp import (
-    qp_left_envs, qp_left_envs_finite, qp_right_envs, qp_right_envs_finite,
+    qp_left_envs, qp_left_envs_finite, qp_left_envs_finite_B, qp_right_envs,
+    qp_right_envs_finite, qp_right_envs_finite_B,
 )
 from ..linalg.arnoldi import smallest_eigs_arnoldi
 from ..linalg.lanczos import eigsh_smallest
 from ..operators.mpo import DenseMPO, MPOHamiltonian
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
-from ..states.quasiparticle import FiniteQP, LeftGaugedQP
+from ..states.quasiparticle import FiniteQP, LeftGaugedQP, _randn
+from ..symmetry.charges import SymmetricFiniteMPS, SymmetricInfiniteMPS
 from ..utils.sync import to_host
 from .derivatives import ac_apply
-
-_SECTOR = ("charge-sector excitations (sector=) come with queue-1 item 11 "
-           "(ROADMAP.md)")
-
 
 @dataclasses.dataclass(frozen=True)
 class QuasiparticleAnsatz:
@@ -70,6 +70,39 @@ def _qp_eigsolve(mv, x0, alg: QuasiparticleAnsatz):
         return smallest_eigs_arnoldi(mv, x0, alg.krylovdim, alg.maxrestarts,
                                      alg.tol)
     return eigsh_smallest(mv, x0, alg.krylovdim, alg.maxrestarts, alg.tol)
+
+
+def _flux_projector(VLs, fmask):
+    """Orthogonal projector on X-space onto charge-flux-`sector` B tensors:
+    B = VL X is masked by the flux mask (c_left + q_phys == c_right +
+    sector) and pulled back through the null-space isometry. The ground
+    tensors are exactly flux-0 (masked), so the flux decomposition commutes
+    with VL VL^dag and this is the exact projector onto the sector part of
+    the tangent space. Needs a full-rank AL (a converged
+    SymmetricInfiniteMPS with all-live labels)."""
+    fm = fmask.to(VLs.dtype)
+
+    def proj(Xs):
+        B = torch.einsum("ilpk,ikr->ilpr", VLs, Xs) * fm
+        return torch.einsum("ilpk,ilpr->ikr", VLs.conj(), B)
+    return proj
+
+
+def _b_flux_projector(ALs, fmask):
+    """Orthogonal projector on B-space: the flux mask composed with the left
+    tangent gauge condition AL^dag B = 0. It works on the (L, D, d, D)
+    excitation tensors directly: for symmetric gauges with exact zero
+    columns (dead slots, unused sectors) a dense complete-QR null basis
+    fills those columns with arbitrary vectors and misses tangent
+    directions, while this form is exact whatever the rank. The two
+    factors commute because AL is exactly masked."""
+    fm = fmask.to(ALs.dtype)
+
+    def proj(Bs):
+        Bs = Bs * fm
+        z = torch.einsum("ilpm,ilpr->imr", ALs.conj(), Bs)
+        return Bs - torch.einsum("ilpm,imr->ilpr", ALs, z)
+    return proj
 
 
 def _generator(generator, device):
@@ -131,13 +164,23 @@ def _renorm_energies_infinite(psi: InfiniteMPS, H, envs):
     return torch.stack(es)
 
 
-def _solve_qp(qp0, H, GLs, GRs, Es, alg, num):
+def _solve_qp(qp0, H, GLs, GRs, Es, alg, num, proj=None, comp_shift=None):
     """Sequential deflation: the `num` smallest eigenpairs of H_eff, each
-    found one shifted by 100 above the window."""
+    found one shifted by 100 above the window. `proj`, an X-space
+    projector (a charge sector), is applied around every matvec, and the
+    sector's complement is lifted by `comp_shift`: under P H P it has
+    eigenvalue 0, below every gap, and rounding leaks the Krylov space
+    into it (the JAX package does not lift it and returns ~1e-20 for the
+    Z_2 gap of the parity TFIM at D=6)."""
     es, xs = [], []
 
     def base_mv(X):
-        return _qp_matvec_infinite(X, qp0, H, GLs, GRs, Es, alg.env_tol)
+        if proj is None:
+            return _qp_matvec_infinite(X, qp0, H, GLs, GRs, Es, alg.env_tol)
+        PX = proj(X)
+        return (proj(_qp_matvec_infinite(PX, qp0, H, GLs, GRs, Es,
+                                         alg.env_tol))
+                + comp_shift * (X - PX))
 
     for _ in range(num):
         res = _qp_eigsolve(_deflated(base_mv, tuple(xs), 100.0), qp0.Xs, alg)
@@ -153,13 +196,22 @@ def excitations_infinite(H, alg: QuasiparticleAnsatz, momenta, psi,
     (energies, qps): energies a (n_momenta, num) CPU tensor, qps one list
     of LeftGaugedQP per momentum. `generator` draws the start vectors (on
     psi's device); without one every momentum starts from the same seeded
-    vector, as the JAX package's one key does."""
-    if sector is not None:
-        raise NotImplementedError(_SECTOR)
-    if not isinstance(psi, InfiniteMPS):
-        raise NotImplementedError(
-            f"excitations on {type(psi).__name__} are not ported yet: "
-            "symmetric states come with queue-1 item 11 (ROADMAP.md)")
+    vector, as the JAX package's one key does.
+
+    sector: the charge of the excitation; it needs a SymmetricInfiniteMPS,
+    and the search is restricted to flux-`sector` B tensors
+    (`_flux_projector`)."""
+    fmask = None
+    if isinstance(psi, SymmetricInfiniteMPS):
+        if sector is not None:
+            fmask = torch.as_tensor(psi.flux_masks(sector),
+                                    device=psi.state.device)
+        psi = psi.state
+    elif sector is not None:
+        raise TypeError("sector-resolved excitations need a "
+                        "SymmetricInfiniteMPS (abelian bond charge labels)")
+    elif not isinstance(psi, InfiniteMPS):
+        raise TypeError(type(psi))
     with matmul_precision():
         if envs is None:
             envs = hamiltonian_environments(psi, H)
@@ -178,7 +230,19 @@ def excitations_infinite(H, alg: QuasiparticleAnsatz, momenta, psi,
                                       right_gs=right_gs,
                                       generator=_generator(generator,
                                                            psi.device))
-            es, xs = _solve_qp(qp0, H, GLs, GRs, Es, alg, num)
+            proj = comp_shift = None
+            if fmask is not None:
+                proj = _flux_projector(qp0.VLs, fmask)
+                X0 = proj(qp0.Xs)
+                n0, e_max = to_host(torch.linalg.vector_norm(X0),
+                                    Es.abs().max())
+                if not n0 > 1e-12:
+                    raise ValueError(f"sector {sector} is unreachable from "
+                                     "the state's bond labels")
+                qp0 = dataclasses.replace(qp0, Xs=X0 / n0)
+                comp_shift = 1e3 * (1.0 + e_max)
+            es, xs = _solve_qp(qp0, H, GLs, GRs, Es, alg, num, proj,
+                               comp_shift)
             energies.append(es)
             qps.append([dataclasses.replace(qp0, Xs=x) for x in xs])
     return _stack_energies(energies), qps
@@ -219,13 +283,33 @@ def excitations_finite(H, alg: QuasiparticleAnsatz, psi: FiniteMPS,
                        envs=None, num: int = 1, generator=None, sector=None):
     """Finite-chain QP excitations. Returns (energies (num,) CPU tensor,
     list of FiniteQP). `envs` is accepted for signature parity: the
-    environments are rebuilt in the full gauges, as in the JAX package."""
-    if sector is not None:
-        raise NotImplementedError(_SECTOR)
+    environments are rebuilt in the full gauges, as in the JAX package.
+
+    sector: the charge of the excitation relative to the ground state; it
+    needs a SymmetricFiniteMPS, and the search runs in B-space
+    (`_excitations_finite_B`), returning `_BQP`s."""
+    fmask = cmask = None
+    if isinstance(psi, SymmetricFiniteMPS):
+        if sector is not None:
+            dev = psi.state.device
+            fmask = torch.as_tensor(psi.flux_masks(sector), device=dev)
+            cmask = torch.as_tensor(psi.masks, device=dev)
+        psi = psi.state
+    elif sector is not None:
+        raise TypeError("sector-resolved excitations need a "
+                        "SymmetricFiniteMPS (abelian bond charge labels)")
     L, D = psi.length, psi.D
+    gen = _generator(generator, psi.device)
     with matmul_precision():
-        qp0 = FiniteQP.random(
-            psi, generator=_generator(generator, psi.device))
+        qp0 = FiniteQP.random(psi, generator=gen)
+        if cmask is not None:
+            # the full gauges come from unmasked QRs whose completions put
+            # junk in the charge-forbidden columns: re-mask them (the
+            # represented state is unchanged, and the projector and the
+            # environments then see exactly charge-pure tensors)
+            mk = cmask.to(psi.dtype)
+            qp0 = dataclasses.replace(qp0, ALs=qp0.ALs * mk,
+                                      ARs=qp0.ARs * mk)
         Ws = stack_W(H, L, psi.dtype, psi.device)
         w = Ws.shape[1]
         GLs = compute_left_envs(qp0.ALs, Ws,
@@ -234,7 +318,12 @@ def excitations_finite(H, alg: QuasiparticleAnsatz, psi: FiniteMPS,
                                  right_boundary(w, D, psi.dtype, psi.device))
         # the ground energy from the full left environment
         E0 = GLs[L][w - 1, 0, 0].real
-        shift = 100.0 * max(1.0, abs(to_host(E0)[0]))
+        E0_host = to_host(E0)[0]
+        shift = 100.0 * max(1.0, abs(E0_host))
+        if fmask is not None:
+            es, qps = _excitations_finite_B(alg, qp0, Ws, GLs, GRs, E0,
+                                            E0_host, fmask, num, gen, shift)
+            return _stack_energies(es), qps
 
         def base_mv(X):
             return _qp_matvec_finite(X, qp0, Ws, GLs, GRs, E0)
@@ -246,6 +335,63 @@ def excitations_finite(H, alg: QuasiparticleAnsatz, psi: FiniteMPS,
             es.append(res.eigenvalue)
             xs.append(res.eigenvector)
     return _stack_energies(es), [dataclasses.replace(qp0, Xs=x) for x in xs]
+
+
+@dataclasses.dataclass(frozen=True)
+class _BQP:
+    """A charged finite quasiparticle carrying its B tensors explicitly
+    (the B-space counterpart of FiniteQP; `bs()` returns them)."""
+
+    Bs: torch.Tensor    # (L, D, d, D)
+    ALs: torch.Tensor
+    ARs: torch.Tensor
+
+    @property
+    def length(self):
+        return self.Bs.shape[0]
+
+    def bs(self):
+        return self.Bs
+
+
+def _excitations_finite_B(alg, qp0, Ws, GLs, GRs, E0, E0_host, fmask, num,
+                          generator, shift):
+    """The charged-sector finite QP solve in B-space: the VL null basis of
+    a rank-deficient symmetric gauge misses tangent directions, so the
+    search runs on raw B tensors under the combined flux and tangent-gauge
+    projector, with the sector's complement lifted far above the physical
+    window so that Lanczos never drifts into it. Returns (host
+    eigenvalues, list of _BQP)."""
+    L, D, d = qp0.ALs.shape[0], qp0.ALs.shape[1], qp0.ALs.shape[2]
+    Pi = _b_flux_projector(qp0.ALs, fmask)
+    comp_shift = 1e3 * (1.0 + abs(E0_host))
+
+    def base_mv(Bs):
+        Bp = Pi(Bs)
+        lBs = qp_left_envs_finite_B(Bp, qp0.ALs, qp0.ARs, GLs, Ws)
+        rBs = qp_right_envs_finite_B(Bp, qp0.ALs, qp0.ARs, GRs, Ws)
+        y = torch.stack([
+            ac_apply(GLs[i], Ws[i], GRs[i + 1], Bp[i])
+            + ac_apply(lBs[i], Ws[i], GRs[i + 1], qp0.ARs[i])
+            + ac_apply(GLs[i], Ws[i], rBs[i], qp0.ALs[i])
+            - E0 * Bp[i] for i in range(L)])
+        # the sector's complement has raw eigenvalue 0 under Pi H Pi, below
+        # any gap: lift it
+        return Pi(y) + comp_shift * (Bs - Bp)
+
+    B0 = Pi(_randn((L, D, d, D), qp0.ALs.dtype, qp0.ALs.device, generator))
+    n0 = to_host(torch.linalg.vector_norm(B0))[0]
+    if not n0 > 1e-12:
+        raise ValueError("the sector is unreachable from the state's bond "
+                         "labels")
+    B0 = B0 / n0
+    es, bs = [], []
+    for _ in range(num):
+        res = _qp_eigsolve(_deflated(base_mv, tuple(bs), shift), B0, alg)
+        es.append(res.eigenvalue)
+        b = Pi(res.eigenvector)
+        bs.append(b / torch.linalg.vector_norm(b))
+    return es, [_BQP(b, qp0.ALs, qp0.ARs) for b in bs]
 
 
 # ----------------------------------------------------------------------------
@@ -274,16 +420,14 @@ def excitations(H, alg, *args, **kwargs):
     if not isinstance(H, MPOHamiltonian):
         raise NotImplementedError(
             f"excitations of a {type(H).__name__} are not ported yet: "
-            "reduced SU(2) MPOs and symmetric states come with queue-1 item "
-            "11 (ROADMAP.md)")
+            "reduced SU(2) MPOs come with queue-1 item 11 (ROADMAP.md)")
     if isinstance(alg, QuasiparticleAnsatz):
-        if isinstance(args[0], FiniteMPS):
+        if isinstance(args[0], (FiniteMPS, SymmetricFiniteMPS)):
             return excitations_finite(H, alg, *args, **kwargs)
         if len(args) < 2 and "psi" not in kwargs:
-            raise NotImplementedError(
-                f"excitations on {type(args[0]).__name__} are not ported "
-                "yet: symmetric states come with queue-1 item 11 "
-                "(ROADMAP.md)")
+            raise TypeError(
+                f"excitations on a {type(args[0]).__name__}: a finite state "
+                "comes first, an infinite one after the momenta")
         return excitations_infinite(H, alg, *args, **kwargs)
     if isinstance(alg, FiniteExcited):
         return excitations_dmrg(H, alg, *args, **kwargs)

@@ -1,6 +1,7 @@
 """`find_groundstate` dispatcher (counterpart of
 mpskit_tpu/algorithms/find_groundstate.py: its FiniteMPS, InfiniteMPS,
-WindowMPS, LazySum and chained-algorithm branches)."""
+WindowMPS, LazySum and chained-algorithm branches, with the abelian
+symmetric states routed to their sector solvers)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,10 @@ from ..operators.lazysum import LazySum, MultipliedOperator
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from ..states.windowmps import WindowMPS
+from ..symmetry.charges import (
+    SymmetricFiniteMPS, SymmetricInfiniteMPS, find_groundstate_symmetric,
+    find_groundstate_symmetric_dmrg2, find_groundstate_symmetric_infinite,
+)
 from .dmrg import DMRG, find_groundstate_dmrg, find_groundstate_dmrg_window
 from .dmrg2 import DMRG2, find_groundstate_dmrg2
 from .grassmann import (
@@ -16,11 +21,13 @@ from .grassmann import (
 )
 from .idmrg import IDMRG1, IDMRG2, find_groundstate_idmrg1, \
     find_groundstate_idmrg2
+from .rsdmrg import RealSpaceParallelDMRG, find_groundstate_rsdmrg
 from .unionalg import ChainedAlg
 from .vumps import VUMPS, find_groundstate_vumps
 
 _FINITE = ((DMRG, find_groundstate_dmrg), (DMRG2, find_groundstate_dmrg2),
-           (GradientGrassmann, find_groundstate_grassmann_finite))
+           (GradientGrassmann, find_groundstate_grassmann_finite),
+           (RealSpaceParallelDMRG, find_groundstate_rsdmrg))
 _INFINITE = ((VUMPS, find_groundstate_vumps),
              (IDMRG1, find_groundstate_idmrg1),
              (IDMRG2, find_groundstate_idmrg2),
@@ -37,11 +44,13 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     GradientGrassmann(tol=tol). Otherwise `alg` picks the solver: DMRG,
     DMRG2 or GradientGrassmann for a FiniteMPS, VUMPS, IDMRG1, IDMRG2 or
     GradientGrassmann for an InfiniteMPS, DMRG for a WindowMPS (which
-    has no default); a ChainedAlg runs its stages in turn. A LazySum is
+    has no default); a ChainedAlg runs its stages in turn. A
+    RealSpaceParallelDMRG runs on a FiniteMPS. A SymmetricFiniteMPS runs
+    the sector DMRG (`find_groundstate_symmetric`, DMRG2 its two-site
+    form), a SymmetricInfiniteMPS the sector VUMPS. A LazySum is
     materialized by `sum_materialized()`, a MultipliedOperator by
-    `eval_at(0.0)`. The other branches of the JAX dispatcher come with
-    later slices of the port and raise NotImplementedError naming theirs
-    (ROADMAP.md, queue 1)."""
+    `eval_at(0.0)`. The SU(2) and anyonic states come with a later slice
+    and raise NotImplementedError naming queue-1 item 11 (ROADMAP.md)."""
     if isinstance(H, LazySum):
         # a time-independent sum is materialized eagerly: the summed FSM is
         # one wider MPO, the fastest form for the matvecs
@@ -53,10 +62,23 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
         if not isinstance(alg, (DMRG, ChainedAlg)):
             raise TypeError(f"{type(alg).__name__} does not run on a "
                             "WindowMPS; a window takes DMRG")
+    elif isinstance(psi, SymmetricFiniteMPS):
+        if isinstance(alg, DMRG2):
+            return find_groundstate_symmetric_dmrg2(psi, H, alg)
+        if alg is not None and not isinstance(alg, DMRG):
+            raise TypeError(f"{type(alg).__name__} does not run on a "
+                            "SymmetricFiniteMPS; it takes DMRG or DMRG2")
+        return find_groundstate_symmetric(psi, H, alg)
+    elif isinstance(psi, SymmetricInfiniteMPS):
+        if alg is not None and not isinstance(alg, VUMPS):
+            raise TypeError(f"{type(alg).__name__} does not run on a "
+                            "SymmetricInfiniteMPS; it takes VUMPS")
+        return find_groundstate_symmetric_infinite(psi, H, alg)
     elif not isinstance(psi, (FiniteMPS, InfiniteMPS)):
         raise NotImplementedError(
             f"find_groundstate for {type(psi).__name__} is not ported yet: "
-            "symmetric states come with queue-1 item 11 (ROADMAP.md)")
+            "SU(2) and anyonic states come with queue-1 item 11 "
+            "(ROADMAP.md)")
     if isinstance(alg, ChainedAlg):
         envs_out, eps = envs, None
         for stage in alg:
@@ -86,6 +108,4 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     if isinstance(alg, tuple(cls for cls, _ in _FINITE + _INFINITE)):
         raise TypeError(
             f"{type(alg).__name__} does not run on {type(psi).__name__}")
-    raise NotImplementedError(
-        f"find_groundstate with {type(alg).__name__} is not ported yet: "
-        "RealSpaceParallelDMRG comes with queue-1 item 10 (ROADMAP.md)")
+    raise TypeError(type(alg))

@@ -37,15 +37,19 @@ from ..states.finitemps import FiniteMPS, support_mask
 from ..states.gauging import regauge_ACC, regauge_CAC
 from ..states.infinitemps import InfiniteMPS
 from ..states.windowmps import WindowMPS
-from ..tensors.ops import leftorth, notrunc, rightorth, svd_truncated
+from ..symmetry.charges import (
+    SymmetricFiniteMPS, SymmetricInfiniteMPS, masked_split_dtype,
+)
+from ..tensors.ops import (
+    leftorth, notrunc, orth_in, rightorth, svd_truncated,
+)
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.logging import logger
 from .derivatives import ac2_apply, ac_apply, c_apply
 
 # states of the JAX package that the port does not have yet, and the
 # queue-1 item (ROADMAP.md) that brings each
-_NOT_PORTED = {"SU2FiniteMPS": 11, "SymmetricFiniteMPS": 11,
-               "SymmetricInfiniteMPS": 11}
+_NOT_PORTED = {"SU2FiniteMPS": 11}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +159,7 @@ def _timestep_infinite(psi: InfiniteMPS, H, dt, m: int, gauge_tol: float,
 # ----------------------------------------------------------------------------
 
 def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
-                     GRL=None, masks=None):
+                     GRL=None, masks=None, split_dtype=None):
     """One symmetric second-order step, starting and ending with center 0.
     Returns (ALs, ARs, AC, GRs, exp_err): new stacks (the inputs are not
     written) and the worst Krylov estimate, a host float. GL0/GRL override
@@ -168,7 +172,9 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
     at L=32 D=256 f32 without them). PRECONDITION: ALs/ARs and GRs must be
     masked / built from masked gauges already: environments walked through
     unmasked ARs carry junk blocks that make H_eff move genuine weight off
-    the support, which the in-sweep masking then deletes."""
+    the support, which the in-sweep masking then deletes. split_dtype: the
+    dtype of the QR / LQ, for charge masks in single precision (see
+    `dmrg._dmrg_sweep_impl`)."""
     L, D = ALs.shape[0], ALs.shape[1]
     w = Ws.shape[1]
     dtype, device = AC.dtype, AC.device
@@ -187,7 +193,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
                                      tau, m)
         if mk is not None:
             AC = AC * mk[i]
-        AL, C = leftorth(AC)
+        AL, C = orth_in(leftorth, AC, split_dtype)
         if mk is not None:
             AL = AL * mk[i]
         GL = transfer_left_mpo(GL, W, AL, AL)
@@ -215,7 +221,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
                                      tau, m)
         if mk is not None:
             AC = AC * mk[i]
-        C, AR = rightorth(AC)
+        C, AR = orth_in(rightorth, AC, split_dtype)
         if mk is not None:
             AR = AR * mk[i]
         GR = transfer_right_mpo(GR, W, AR, AR)
@@ -279,37 +285,58 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
         raise TypeError("a Window operator evolves a WindowMPS, got "
                         f"{type(psi).__name__}")
 
-    if isinstance(psi, InfiniteMPS):
-        _require_complex(psi.dtype)
+    if isinstance(psi, (InfiniteMPS, SymmetricInfiniteMPS)):
+        inner = psi.state if isinstance(psi, SymmetricInfiniteMPS) else psi
+        _require_complex(inner.dtype)
         if isinstance(alg, TDVP2):
             raise TypeError("TDVP2 evolves a FiniteMPS; an InfiniteMPS "
                             "takes TDVP")
+        A_mask = C_mask = None
+        if isinstance(psi, SymmetricInfiniteMPS):
+            A_mask, C_mask = psi.device_masks()
         with matmul_precision():
-            psi, envs, exp_err = _timestep_infinite(
-                psi, H, dt, alg.expalg_m, alg.gauge_tol, alg.env_tol,
-                env_guess=envs)
+            inner, envs, exp_err = _timestep_infinite(
+                inner, H, dt, alg.expalg_m, alg.gauge_tol, alg.env_tol,
+                env_guess=envs, A_mask=A_mask, C_mask=C_mask)
         _warn_exp(alg, exp_err, env_resid=envs.resid, name="TDVP(infinite)")
-        return psi, envs
+        if isinstance(psi, SymmetricInfiniteMPS):
+            return dataclasses.replace(psi, state=inner), envs
+        return inner, envs
 
-    if isinstance(psi, FiniteMPS):
-        _require_complex(psi.dtype)
+    if isinstance(psi, (FiniteMPS, SymmetricFiniteMPS)):
+        inner = psi.state if isinstance(psi, SymmetricFiniteMPS) else psi
+        _require_complex(inner.dtype)
         if isinstance(alg, TDVP2):
+            if isinstance(psi, SymmetricFiniteMPS):
+                raise TypeError("TDVP2 re-splits bonds without their "
+                                "charges; a SymmetricFiniteMPS takes TDVP")
             return _timestep_finite2_entry(psi, H, dt, alg)
-        psi = psi.move_center(0)
-        L, D = psi.length, psi.D
-        dtype, device = psi.dtype, psi.device
-        smask = torch.as_tensor(support_mask(L, psi.physicaldim, D),
+        inner = inner.move_center(0)
+        L, D = inner.length, inner.D
+        dtype, device = inner.dtype, inner.device
+        smask = torch.as_tensor(support_mask(L, inner.physicaldim, D),
                                 device=device)
+        if isinstance(psi, SymmetricFiniteMPS):
+            smask = smask & torch.as_tensor(psi.masks, device=device)
+        # the gauges are masked BEFORE the environments are built
+        # (state-neutral), so that H_eff is exactly block-preserving (see
+        # _timestep_finite)
         mk = smask.to(dtype)
         with matmul_precision():
             Ws = stack_W(H, L, dtype, device)
-            ALs0, ARs0, AC0 = psi.ALs * mk, psi.ARs * mk, psi.AC * mk[0]
+            ALs0, ARs0, AC0 = inner.ALs * mk, inner.ARs * mk, inner.AC * mk[0]
             GRs = compute_right_envs(
                 ARs0, Ws, right_boundary(Ws.shape[1], D, dtype, device))
             ALs, ARs, AC, _, exp_err = _timestep_finite(
-                ALs0, ARs0, AC0, Ws, GRs, alg.expalg_m, dt=dt, masks=smask)
+                ALs0, ARs0, AC0, Ws, GRs, alg.expalg_m, dt=dt, masks=smask,
+                split_dtype=(masked_split_dtype(dtype)
+                             if isinstance(psi, SymmetricFiniteMPS)
+                             else None))
         _warn_exp(alg, exp_err, name="TDVP(finite)")
-        return FiniteMPS(ALs, ARs, AC, 0), None
+        out = FiniteMPS(ALs, ARs, AC, 0)
+        if isinstance(psi, SymmetricFiniteMPS):
+            return dataclasses.replace(psi, state=out), None
+        return out, None
 
     raise TypeError(type(psi))
 

@@ -6,7 +6,7 @@ conditions and the fidelity susceptibility.
 
 A WindowMPS's spectrum and entropy are its window's; its variance is the
 two-site tangent variance with the infinite sides as boundaries. The
-charge-sector transfer spectrum comes with queue-1 item 11 (ROADMAP.md)."""
+transfer spectrum of a SymmetricInfiniteMPS resolves charge sectors."""
 
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from ..states.quasiparticle import (
     FiniteQP, LeftGaugedQP, null_spaces, qp_to_finitemps,
 )
 from ..states.windowmps import WindowMPS
+from ..symmetry.charges import SymmetricInfiniteMPS
 from ..tensors.ops import leftnull, leftorth, rightnull, safe_xlogx
 from ..transfermatrix.transfer import (
     mps_transfer_matvec_left, transfer_left_mpo,
@@ -112,30 +113,60 @@ def calc_galerkin(psi, H, envs=None):
 # transfer spectra / correlation lengths
 # ----------------------------------------------------------------------------
 
-def _transfer_eigenvalues(psi: InfiniteMPS, num: int, krylovdim: int):
+def _transfer_eigenvalues(psi: InfiniteMPS, num: int, krylovdim: int,
+                          M=None):
     """Host complex128 numpy eigenvalues of the unit-cell AL transfer
     operator by descending magnitude: one Arnoldi factorization from
-    1 + 0.1 rho_right, as in the JAX package."""
+    1 + 0.1 rho_right, as in the JAX package. M (D, D) restricts the
+    operator to the masked (charge-flux) subspace, masking its input and
+    output; its start vector then gets a random part inside that subspace
+    from a generator seeded 0 on psi's device (the JAX package draws
+    PRNGKey(0))."""
     L, D = psi.period, psi.D
     v0 = (torch.eye(D, dtype=psi.dtype, device=psi.device)
           + 0.1 * psi.rho_right(L - 1))
-    lams, _ = spectrum_arnoldi(mps_transfer_matvec_left(psi.AL, psi.AL), v0,
-                               m=min(krylovdim, D * D), nev=num)
+    mv = mps_transfer_matvec_left(psi.AL, psi.AL)
+    if M is not None:
+        generator = torch.Generator(device=psi.device).manual_seed(0)
+        rdt = psi.AL.real.dtype if psi.dtype.is_complex else psi.dtype
+        v0 = (v0 + torch.randn((D, D), generator=generator, dtype=rdt,
+                               device=psi.device).to(psi.dtype)) * M
+        base = mv
+
+        def mv(v):
+            return base(v * M) * M
+    lams, _ = spectrum_arnoldi(mv, v0, m=min(krylovdim, D * D), nev=num)
     return lams
 
 
 def transfer_spectrum(psi, num: int = 5, krylovdim: int = 40, sector=None):
     """The `num` leading eigenvalues of the unit-cell AL transfer operator
     by descending magnitude (lambda_1 = 1 for a normalized state), a
-    complex128 tensor on the state's device."""
-    if sector is not None:
-        raise NotImplementedError(
-            "transfer_spectrum(sector=) needs the symmetric states of "
-            "queue-1 item 11 (ROADMAP.md)")
-    if not isinstance(psi, InfiniteMPS):
+    complex128 tensor on the state's device.
+
+    sector: the charge flux of the transfer eigenvectors v, charge(bra) -
+    charge(ket) = sector on the cell-boundary bond. It needs a
+    SymmetricInfiniteMPS, whose bond labels confine the Arnoldi iteration
+    to the flux subspace (padded labels excluded); sector=0 is the
+    untwisted, charge-diagonal channel."""
+    labels = None
+    if isinstance(psi, SymmetricInfiniteMPS):
+        labels = np.asarray(psi.bond_charges[len(psi.bond_charges) - 1])
+        psi = psi.state
+    elif not isinstance(psi, InfiniteMPS):
         raise TypeError(type(psi))
-    return torch.from_numpy(_transfer_eigenvalues(psi, num, krylovdim)).to(
-        psi.device)
+    if sector is not None and labels is None:
+        raise ValueError(
+            "sector-resolved transfer_spectrum needs a SymmetricInfiniteMPS "
+            "(static bond charge labels)")
+    M = None
+    if sector is not None:
+        live = labels < 10 ** 6
+        flux = (labels[:, None] - labels[None, :] == sector) \
+            & live[:, None] & live[None, :]
+        M = torch.as_tensor(flux, device=psi.device).to(psi.dtype)
+    return torch.from_numpy(_transfer_eigenvalues(
+        psi, num, krylovdim, M)).to(psi.device)
 
 
 def marek_gap(psi, num: int = 5, krylovdim: int = 40):

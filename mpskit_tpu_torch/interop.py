@@ -12,6 +12,7 @@ from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
 from .states.quasiparticle import FiniteQP, LeftGaugedQP
 from .states.windowmps import WindowMPS
+from .symmetry.charges import SymmetricFiniteMPS, SymmetricInfiniteMPS
 
 
 def finite_mps_from_numpy(ALs, ARs, AC, center: int,
@@ -69,6 +70,36 @@ def finite_qp_from_numpy(Xs, VLs, ALs, ARs, mask, device="cuda") -> FiniteQP:
         return torch.from_numpy(np.array(a, copy=True)).to(device)
 
     return FiniteQP(t(Xs), t(VLs), t(ALs), t(ARs), t(mask).to(torch.bool))
+
+
+def _symmetry_data(bond_charges, phys_charges, modulus):
+    return (tuple(np.array(c, dtype=np.int64, copy=True)
+                  for c in bond_charges),
+            tuple(int(q) for q in phys_charges),
+            None if modulus is None else int(modulus))
+
+
+def symmetric_finite_mps_from_numpy(ALs, ARs, AC, center: int,
+                                    bond_charges, phys_charges,
+                                    modulus=None,
+                                    device="cuda") -> SymmetricFiniteMPS:
+    """SymmetricFiniteMPS from the numpy leaves, bond charges, physical
+    charges and modulus of a JAX one, on the card unless `device` says
+    otherwise."""
+    return SymmetricFiniteMPS(
+        finite_mps_from_numpy(ALs, ARs, AC, center, device=device),
+        *_symmetry_data(bond_charges, phys_charges, modulus))
+
+
+def symmetric_infinite_mps_from_numpy(AL, AR, AC, C, bond_charges,
+                                      phys_charges, modulus=None,
+                                      device="cuda") -> SymmetricInfiniteMPS:
+    """SymmetricInfiniteMPS from the numpy leaves, bond charges, physical
+    charges and modulus of a JAX one, on the card unless `device` says
+    otherwise."""
+    return SymmetricInfiniteMPS(
+        infinite_mps_from_numpy(AL, AR, AC, C, device=device),
+        *_symmetry_data(bond_charges, phys_charges, modulus))
 
 
 def mpo_from_numpy(W) -> MPOHamiltonian:

@@ -46,6 +46,20 @@ def _nvalid(beta, thresh):
     return int(broke[0]) + 1 if broke.size else beta.shape[0]
 
 
+def _breakdown(alpha, beta, dtype) -> float:
+    """The breakdown threshold of a factorization: _BREAKDOWN, raised in
+    single precision to 10 eps |T| (the rounding level of a new Krylov
+    vector). Once the Krylov space is exhausted (a masked sector smaller
+    than m) the next beta is rounding noise: 1e-7 |H| in float32, far
+    above _BREAKDOWN, and the normalized noise vectors that follow put
+    spurious Ritz values into T (a float32 U(1) sweep at D=128 found
+    -140 for an operator whose spectrum starts at -20)."""
+    if dtype not in (torch.float32, torch.complex64):
+        return _BREAKDOWN
+    scale = max(float(np.abs(alpha).max()), float(np.abs(beta).max()))
+    return max(_BREAKDOWN, 10 * float(torch.finfo(torch.float32).eps) * scale)
+
+
 def lanczos_factorize(matvec: Callable, v0, m: int):
     """m Lanczos steps from v0 with two-pass classical Gram-Schmidt against
     the whole (m + 1)-slot stacked basis.
@@ -69,7 +83,7 @@ def lanczos_factorize(matvec: Callable, v0, m: int):
         V[j + 1] = _normalized_or_zero(w, b)
     ab = np.asarray(to_host(*a_dev, *b_dev), np.float64)
     alpha, beta = ab[:m], ab[m:]
-    return V, alpha, beta, _nvalid(beta, _BREAKDOWN)
+    return V, alpha, beta, _nvalid(beta, _breakdown(alpha, beta, V.dtype))
 
 
 def lanczos_factorize_local(matvec: Callable, v0, m: int,
@@ -114,7 +128,8 @@ def lanczos_factorize_local(matvec: Callable, v0, m: int,
     while j < m and (j == 0 or beta[j - 1] > exit_tol):
         v_prev, v = step(j, v_prev, v, matvec(v))
         j += 1
-    return V, alpha, beta, _nvalid(beta, max(_BREAKDOWN, exit_tol))
+    return V, alpha, beta, _nvalid(
+        beta, max(_breakdown(alpha[:j], beta[:j], V.dtype), exit_tol))
 
 
 def _tridiag(alpha, beta, nvalid: int, sentinel: float):

@@ -76,6 +76,14 @@ def rightorth_hybrid(A, full_rank: bool):
     return R.mT.conj(), Q.mT.conj().reshape(l, p, r)
 
 
+def orth_in(orth, A, dtype, *args):
+    """orth(A, *args) (a gauge move such as leftorth or rightorth) computed
+    in `dtype` (None: A's own) and returned in A's dtype."""
+    if dtype is None:
+        return orth(A, *args)
+    return tuple(x.to(A.dtype) for x in orth(A.to(dtype), *args))
+
+
 def leftorth(A):
     """MPS tensor (l, p, r) -> (AL, C): A = AL @ C with AL left-isometric,
     padded back to A's shape when l*p < r."""

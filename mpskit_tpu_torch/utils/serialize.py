@@ -3,12 +3,18 @@ mpskit_tpu/utils/serialize.py), in the JAX package's `.npz` layout, so
 that a checkpoint either package wrote loads in the other: `__type__`
 names the container, `leaf_0`, `leaf_1`, ... hold its tensors in the JAX
 package's pytree order, and the static data sits beside them (`__center__`,
-`__nrows__`, `__momentum__`, `__trivial__`).
+`__nrows__`, `__momentum__`, `__trivial__`, `__bond_charges__`,
+`__phys_charges__`).
 
-Covered containers: FiniteMPS, InfiniteMPS, WindowMPS, MPSMultiline and
-LeftGaugedQP. The symmetric and anyonic containers come with queue-1 item
-11 (ROADMAP.md). Every iterative algorithm's `finalize(iter, psi, H)` hook
-can call `save_state`."""
+Covered containers: FiniteMPS, InfiniteMPS, WindowMPS, MPSMultiline,
+LeftGaugedQP, SymmetricFiniteMPS and SymmetricInfiniteMPS. The anyonic
+container comes with queue-1 item 11 (ROADMAP.md). Every iterative
+algorithm's `finalize(iter, psi, H)` hook can call `save_state`.
+
+A symmetric state's Z_n modulus goes into an extra `__modulus__` key: the
+JAX package writes none and reloads every symmetric state as U(1), which
+gives a Z_n state the wrong masks. A file without the key (a U(1) state,
+or any JAX checkpoint) loads as U(1)."""
 
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ from ..states.infinitemps import InfiniteMPS
 from ..states.multiline import MPSMultiline
 from ..states.quasiparticle import LeftGaugedQP
 from ..states.windowmps import WindowMPS
+from ..symmetry.charges import SymmetricFiniteMPS, SymmetricInfiniteMPS
 
-_ITEM_11 = ("SymmetricFiniteMPS", "SymmetricInfiniteMPS", "AnyonicInfiniteMPS")
+_ITEM_11 = ("AnyonicInfiniteMPS",)
 
 
 def _leaves(psi) -> list:
@@ -38,6 +45,8 @@ def _leaves(psi) -> list:
     if isinstance(psi, LeftGaugedQP):
         return ([psi.Xs, psi.VLs] + _leaves(psi.left_gs)
                 + _leaves(psi.right_gs))
+    if isinstance(psi, (SymmetricFiniteMPS, SymmetricInfiniteMPS)):
+        return _leaves(psi.state)
     raise TypeError(f"cannot checkpoint a {type(psi).__name__}")
 
 
@@ -46,7 +55,7 @@ def save_state(path: str, psi) -> None:
     tname = type(psi).__name__
     if tname in _ITEM_11:
         raise NotImplementedError(
-            f"save_state of a {tname} comes with the symmetric states of "
+            f"save_state of a {tname} comes with the anyonic states of "
             "queue-1 item 11 (ROADMAP.md)")
     arrays = {"__type__": np.array(tname)}
     arrays.update({f"leaf_{i}": t.detach().cpu().resolve_conj().numpy()
@@ -60,6 +69,14 @@ def save_state(path: str, psi) -> None:
     elif isinstance(psi, LeftGaugedQP):
         arrays["__momentum__"] = np.asarray(psi.momentum)
         arrays["__trivial__"] = np.array(bool(psi.trivial))
+    elif isinstance(psi, (SymmetricFiniteMPS, SymmetricInfiniteMPS)):
+        arrays["__bond_charges__"] = np.stack(
+            [np.asarray(c) for c in psi.bond_charges])
+        arrays["__phys_charges__"] = np.asarray(psi.phys_charges, int)
+        if isinstance(psi, SymmetricFiniteMPS):
+            arrays["__center__"] = np.array(psi.state.center)
+        if psi.modulus is not None:
+            arrays["__modulus__"] = np.array(int(psi.modulus))
     np.savez(path, **arrays)
 
 
@@ -70,7 +87,7 @@ def load_state(path: str, device="cuda"):
     tname = str(data["__type__"])
     if tname in _ITEM_11:
         raise NotImplementedError(
-            f"load_state of a {tname} comes with the symmetric states of "
+            f"load_state of a {tname} comes with the anyonic states of "
             "queue-1 item 11 (ROADMAP.md)")
     n = len([k for k in data.files if k.startswith("leaf_")])
     leaves = [torch.from_numpy(data[f"leaf_{i}"]).to(device)
@@ -91,4 +108,13 @@ def load_state(path: str, device="cuda"):
                             InfiniteMPS(*leaves[6:10]),
                             float(data["__momentum__"]),
                             bool(data["__trivial__"]))
+    if tname in ("SymmetricFiniteMPS", "SymmetricInfiniteMPS"):
+        sym = (tuple(np.asarray(row) for row in data["__bond_charges__"]),
+               tuple(int(q) for q in data["__phys_charges__"]),
+               int(data["__modulus__"]) if "__modulus__" in data.files
+               else None)
+        if tname == "SymmetricFiniteMPS":
+            return SymmetricFiniteMPS(
+                FiniteMPS(*leaves[:3], int(data["__center__"])), *sym)
+        return SymmetricInfiniteMPS(InfiniteMPS(*leaves), *sym)
     raise TypeError(f"unknown state type {tname}")

@@ -268,8 +268,14 @@ def test_branches_not_ported_raise(name, item):
         changebonds(fin, OptimalExpand())
     with pytest.raises(ValueError, match="InfiniteMPS"):
         changebonds(fin, H, VUMPSSvdCut())
+    # RealSpaceParallelDMRG (item 10) is ported: it runs on a FiniteMPS,
+    # and a stand-in that only carries its name is no solver
+    from mpskit_tpu_torch import RealSpaceParallelDMRG
+
+    with pytest.raises(TypeError, match="does not run"):
+        find_groundstate(inf, H, RealSpaceParallelDMRG())
     rsdmrg = type("RealSpaceParallelDMRG", (), {})()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError):
         find_groundstate(inf, H, rsdmrg)
     with pytest.raises(TypeError, match="DMRG2 does not run"):
         find_groundstate(inf, H, DMRG2())

@@ -42,7 +42,8 @@ def _no_card():
                                    "exact_diagonalization", "isometry",
                                    "window_from_infinite", "purification_mps",
                                    "thermal_state", "propagator",
-                                   "load_state"])
+                                   "load_state", "symmetric_finite_random",
+                                   "symmetric_infinite_random"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     _no_card()
     gen = torch.Generator().manual_seed(0)
@@ -103,6 +104,14 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             from mpskit_tpu_torch import load_state
 
             load_state(path)
+        elif entry == "symmetric_finite_random":
+            from mpskit_tpu_torch import SymmetricFiniteMPS
+
+            SymmetricFiniteMPS.random(L, (1, -1), D)
+        elif entry == "symmetric_infinite_random":
+            from mpskit_tpu_torch import SymmetricInfiniteMPS
+
+            SymmetricInfiniteMPS.random(2, (1, -1), D)
         else:
             As = _arrays()[0]
             finite_qp_from_numpy(As[:, :, :, :2].sum(1), As, As, As,
@@ -298,3 +307,54 @@ def test_windows_propagator_thermal_and_checkpoints_on_the_cpu(tmp_path):
     path = str(tmp_path / "win.npz")
     save_state(path, win)
     assert load_state(path, device="cpu").window.AC.device.type == "cpu"
+
+
+def _slice11_entry_points(device):
+    """The states and results of slice 11's entry points made on `device`
+    (None: each entry point's default), as {name: tensor}."""
+    from mpskit_tpu_torch import (
+        DMRG, VUMPS, RealSpaceParallelDMRG, SymmetricFiniteMPS,
+        SymmetricInfiniteMPS, find_groundstate, heisenberg_XXX,
+        scan_groundstate_vumps, transverse_field_ising,
+    )
+    from mpskit_tpu_torch.algorithms.rsdmrg import find_groundstate_rsdmrg
+
+    kw = {} if device is None else {"device": device}
+    dev = "cuda" if device is None else device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sf = SymmetricFiniteMPS.random(6, (1, -1), 4, 0, torch.float64,
+                                   generator=gen, **kw)
+    si = SymmetricInfiniteMPS.random(2, (1, -1), 4, torch.float64,
+                                     generator=gen, **kw)
+    sf, _, _ = find_groundstate(sf, heisenberg_XXX(spin=0.5),
+                                DMRG(maxiter=2, verbosity=0))
+    H = transverse_field_ising(g=1.5)
+    ipsi = [InfiniteMPS.random(1, 2, 4, torch.float64, dev, gen)
+            for _ in range(2)]
+    scan = scan_groundstate_vumps(ipsi, [H, transverse_field_ising(g=2.0)],
+                                  VUMPS(maxiter=2, verbosity=0))
+    fpsi = FiniteMPS.random(8, 2, 4, torch.float64, dev, gen)
+    rs, envs, _ = find_groundstate_rsdmrg(
+        fpsi, H, RealSpaceParallelDMRG(nseg=2, maxiter=1, verbosity=0))
+    return {"SymmetricFiniteMPS.random": sf.state.AC,
+            "SymmetricInfiniteMPS.random": si.state.AL,
+            "scan_groundstate_vumps": scan.psis.AL,
+            "scan energies": scan.energies,
+            "find_groundstate_rsdmrg": rs.AC, "rsdmrg envs": envs.GLs}
+
+
+@pytest.mark.cuda
+def test_slice11_entry_points_on_the_card_by_default():
+    """SymmetricFiniteMPS.random and SymmetricInfiniteMPS.random put their
+    tensors on the card by default; scan_groundstate_vumps and
+    find_groundstate_rsdmrg keep states made there on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the default device is the card")
+    for name, t in _slice11_entry_points(None).items():
+        assert t.is_cuda, name
+
+
+def test_slice11_entry_points_on_the_cpu_when_asked():
+    """The same entry points keep CPU states and results on the CPU."""
+    for name, t in _slice11_entry_points("cpu").items():
+        assert t.device.type == "cpu", name

@@ -365,20 +365,24 @@ def test_finite_excited_matches_ed_and_jax():
 
 
 def test_unported_branches_raise():
+    """The reduced-MPO branch raises naming item 11. The charge sectors and
+    symmetric states (item 11's abelian part) are ported: sector= on a
+    plain state raises TypeError as in the JAX package, and stand-ins that
+    only carry the symmetric names are no states."""
     H = transverse_field_ising(g=1.5)
     psi = InfiniteMPS.random(1, 2, 4, torch.float64, "cpu",
                              torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="SymmetricInfiniteMPS"):
         excitations(H, QuasiparticleAnsatz(), 0.0, psi, sector=1)
     fpsi = FiniteMPS.random(4, 2, 4, torch.float64, "cpu",
                             torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError, match="SymmetricFiniteMPS"):
         excitations(H, QuasiparticleAnsatz(), fpsi, sector=1)
     for name in ("SymmetricFiniteMPS", "SymmetricInfiniteMPS"):
         sym = type(name, (), {})()
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(TypeError):
             excitations(H, QuasiparticleAnsatz(), sym)
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(TypeError):
             excitations(H, QuasiparticleAnsatz(), 0.0, sym)
     reduced = type("ReducedMPO", (), {})()
     with pytest.raises(NotImplementedError, match="item 11"):

@@ -2,8 +2,10 @@
 package on the CPU: a save / load round trip of every ported container
 (FiniteMPS, InfiniteMPS, WindowMPS, MPSMultiline, LeftGaugedQP), a
 checkpoint that the JAX package wrote loaded by the port and the reverse,
-bit for bit, the symmetric containers' NotImplementedError, and
-PeriodicArray's indexing."""
+bit for bit, the symmetric containers (their modulus kept), the anyonic
+container's NotImplementedError, and PeriodicArray's indexing."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -117,10 +119,55 @@ def test_port_states_round_trip(tmp_path):
         _equal(_torch_leaves(out), _torch_leaves(state))
 
 
+def _masks(state):
+    m = state.masks
+    return m if isinstance(m, tuple) else (m,)
+
+
+def _symmetric_state(name, modulus):
+    """A random symmetric container of the port on the CPU: spin-1/2
+    charges (1, -1) for U(1), parity charges (0, 1) for modulus 2."""
+    from mpskit_tpu_torch import SymmetricFiniteMPS, SymmetricInfiniteMPS
+
+    gen = torch.Generator().manual_seed(5)
+    phys = (1, -1) if modulus is None else (0, 1)
+    if name == "SymmetricFiniteMPS":
+        return SymmetricFiniteMPS.random(6, phys, 6, 0, torch.float64,
+                                         modulus, "cpu", gen)
+    return SymmetricInfiniteMPS.random(2, phys, 6, torch.complex128,
+                                       modulus, "cpu", gen)
+
+
 @pytest.mark.parametrize("name", ["SymmetricFiniteMPS",
                                   "SymmetricInfiniteMPS",
                                   "AnyonicInfiniteMPS"])
 def test_symmetric_containers_name_item_11(name, tmp_path):
+    """The anyonic container raises naming item 11. The abelian symmetric
+    containers are ported: a Z_2 state (modulus 2, which the JAX package's
+    layout drops) and a U(1) state round-trip with their labels, modulus
+    and masks, bit for bit; a stand-in is no container."""
+    if name != "AnyonicInfiniteMPS":
+        for modulus in (2, None):
+            state = _symmetric_state(name, modulus)
+            path = str(tmp_path / f"s{modulus}.npz")
+            save_state(path, state)
+            back = load_state(path, device="cpu")
+            assert type(back) is type(state) and back.modulus == modulus
+            assert back.phys_charges == state.phys_charges
+            for a, b in zip(back.bond_charges, state.bond_charges):
+                np.testing.assert_array_equal(a, b)
+            for a, b in zip(_masks(back), _masks(state)):
+                np.testing.assert_array_equal(a, b)
+            _equal(_torch_leaves(back), _torch_leaves(state))
+            if modulus is not None:
+                # what the JAX layout reloads: the same labels as U(1),
+                # with other masks
+                u1 = dataclasses.replace(state, modulus=None)
+                assert any(not np.array_equal(a, b) for a, b in
+                           zip(_masks(u1), _masks(state)))
+        with pytest.raises(TypeError):
+            save_state(str(tmp_path / "x.npz"), type(name, (), {})())
+        return
     with pytest.raises(NotImplementedError, match="item 11"):
         save_state(str(tmp_path / "x.npz"), type(name, (), {})())
     path = str(tmp_path / "y.npz")

@@ -419,16 +419,21 @@ def test_a_real_state_or_a_wrong_argument_raises_type_error():
     ("MultipliedOperator", 10, "H"), ("SU2FiniteMPS", 11, "psi"),
     ("SymmetricFiniteMPS", 11, "psi"), ("SymmetricInfiniteMPS", 11, "psi")])
 def test_unported_branches_name_their_queue_item(name, item, where):
-    """The symmetric states raise NotImplementedError naming item 11. The
-    item-10 types are ported: the real WindowMPS, Window, LazySum and
-    MultipliedOperator take a step (a Window or a lazy sum at the midpoint
-    equal to the plain operator there), and stand-ins that only carry
-    those names raise TypeError."""
+    """SU2FiniteMPS raises NotImplementedError naming item 11. The abelian
+    symmetric states of item 11 and the item-10 types are ported: the real
+    WindowMPS, Window, LazySum and MultipliedOperator take a step (a Window
+    or a lazy sum at the midpoint equal to the plain operator there; the
+    symmetric states in tests/test_torch_symmetric_tdvp.py), and stand-ins
+    that only carry those names raise TypeError."""
     stand_in = type(name, (), {})()
     H = heisenberg_XXX(spin=0.5)
     psi = FiniteMPS.random(4, 2, 4, C128, "cpu",
                            torch.Generator().manual_seed(0))
     args = (stand_in, H) if where == "psi" else (psi, stand_in)
+    if name.startswith("Symmetric"):
+        with pytest.raises(TypeError):
+            timestep(*args, 0.0, 0.05)
+        return
     if item == 11:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             timestep(*args, 0.0, 0.05)

@@ -88,8 +88,8 @@ def _finite(L=6, d=2, D=6, seed=0, dtype=jnp.complex128):
 def test_transfer_spectrum_marek_gap_and_correlation_length():
     """A random complex period-2 cell at D=5: the sorted magnitudes of the
     five leading transfer eigenvalues (|lambda_1| = 1), eps, delta and
-    xi agree with the JAX package to 1e-12; sector= raises naming item
-    11."""
+    xi agree with the JAX package to 1e-12; sector= on a plain state
+    raises ValueError, as in the JAX package."""
     pj, pt = _infinite()
     lj = np.sort(np.abs(np.asarray(jtb.transfer_spectrum(pj))))
     lt = transfer_spectrum(pt)
@@ -100,7 +100,7 @@ def test_transfer_spectrum_marek_gap_and_correlation_length():
            np.array([float(x) for x in jtb.marek_gap(pj)]), 1e-12)
     assert abs(correlation_length(pt)
                - float(jtb.correlation_length(pj))) <= 1e-11
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="SymmetricInfiniteMPS"):
         transfer_spectrum(pt, sector=1)
 
 
