@@ -181,9 +181,9 @@ Phases, in order; any failure exits non-zero:
      1e-5 relative of the from_infinite window's, grow(1, 1) then
      shrink(1, 1) with a deviation below 1e-5 and <X> unchanged to 1e-6;
      (b) the co-evolving window TDVP of H(t) = H_zz + (1.5 - 0.6 t) H_x
-     as Window(LazySum) in complex64 from (a)'s state, 10 steps of dt=0.05
+     as Window(LazySum) in complex64 from (a)'s state, 6 steps of dt=0.05
      with TDVP(expalg_m=20), window_tdvp_step_time_tfim_ramp_L32_D256_
-     complex64 (steps 2-10) in a JSON line with syncs per step, the
+     complex64 (steps 2..) in a JSON line with syncs per step, the
      frozen-boundary run's error after 5 steps printed beside; gates: the
      centre <X> and <ZZ> within 1e-4 of the infinite TDVP of the same sum at every
      step, the norm within 1e-5 of 1, no K1 launch; (c) propagator in
@@ -234,7 +234,7 @@ Phases, in order; any failure exits non-zero:
      1e-6 of the exact free-fermion one; the three sector-1
      quasiparticles above the vacuum of the XX chain at h=4 (L=32 D=64)
      within 1e-7 of h - 2 cos(n pi / 33); (c) from an N=16 ground state at
-     D=256 (float32 DMRG, made complex64) the quench to XXZ(delta=0.5), 10
+     D=256 (float32 DMRG, made complex64) the quench to XXZ(delta=0.5), 6
      TDVP(expalg_m=20) steps of dt=0.05 symmetric and the same steps
      unsymmetric, u1_tdvp_step_time_xxz_L32_D256_complex64 (steps 2..) in
      a JSON line; gates: the basis order (charge (0, 1) is 1 - 2 Sz), the
@@ -250,7 +250,37 @@ Phases, in order; any failure exits non-zero:
      outside the new masks and, after 10 VUMPS iterations at the larger D,
      an energy not above the one before; save_state / load_state of a Z_2
      SymmetricFiniteMPS and of (d)'s state, bit for bit with labels,
-     masks and modulus.
+     masks and modulus;
+ 21. the SU(2) family in float64 ([su2] lines; starts drawn on the CPU
+     from seeds and moved to the card): (a) the reduced VUMPS of the spin-1
+     Heisenberg chain at scripts/bench_su2_reduced.py's bond (multiplets
+     (1/2 x34, 3/2 x25, 5/2 x8), dense D=216) through find_groundstate
+     from a random state, then steady iterations at krylovdim 10, 2
+     restarts: su2_reduced_vumps_iteration_time_heisenberg_s1_D216_float64
+     with host syncs, GEMM terms per rac_apply, the idle share and the
+     ten largest device operations under torch.profiler; beside it
+     dense_vumps_iteration_time_heisenberg_s1_D216_float64 (the plain
+     VUMPS at the embedded converged state, and from a random state);
+     gates: the energy density within 1e-6 of -1.401484038971 and the
+     dense Schmidt values (2j+1)-fold degenerate to 1e-10; (b) the
+     reduced Haldane gap at dense D=42, p = pi, spin-1 sector (QP tol
+     1e-7, the JAX test's):
+     su2_haldane_qp_solve_time_s1_D42_float64, gates 1e-4 of 0.41047925
+     and 1e-6 of the dense QP on the embedded state; (c) SU2DMRG2 (2
+     sweeps, max_mult 40, dense width capped at 256) then one SU2DMRG
+     sweep at L=32, total spin 0, from a low-spin random start (2j <= 6)
+     through find_groundstate:
+     su2_dmrg2_sweep_time_heisenberg_s1_L32_float64 (sweeps 2..) and the
+     one-site sweep time, gates: the widest dense bond 200-256, the
+     energy within 1e-6 relative of phase 9's float64 continuation,
+     expand_bond_reduced grows the middle bond with the energy kept to
+     1e-10; (d) complex128 SU2TDVP through timestep, dt=0.05, 2 steps at
+     L=32 from a dense-64 state after one DMRG2 sweep:
+     su2_tdvp_step_time_heisenberg_s1_L32_complex128 (steps 2..), gates:
+     energy 1e-6 relative, norm 1e-10; (e) the dense-projector VUMPS at
+     tests/test_su2.py's bond (dense D=22): 5e-4 of 4 E0, exact
+     multiplet degeneracies; (f) (a)-(d) at dense D=8 / L=8 on the card
+     and the CPU, agreeing to 1e-10; K1 launches 0 (launches_su2).
 Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -347,7 +377,7 @@ WIN_L, WIN_D, WIN_G, WIN_SWEEPS, WIN_TOL = 32, 256, 1.5, 12, 1e-5
 WIN_VUMPS_ITERS = 60
 # leg (b): the co-evolving window TDVP of the field ramp H(t) = H_zz +
 # (1.5 - 0.6 t) H_x in complex64 against the infinite TDVP of the same sum
-RAMP_STEPS, RAMP_DT, RAMP_M, RAMP_TOL, RAMP_NORM_TOL = 10, 0.05, 20, 1e-4, 1e-5
+RAMP_STEPS, RAMP_DT, RAMP_M, RAMP_TOL, RAMP_NORM_TOL = 6, 0.05, 20, 1e-4, 1e-5
 # the frozen-boundary run beside it (printed only) goes half as far
 FROZEN_STEPS = 5
 # leg (c): dynamical DMRG in complex128, the ground-state pole at L=32 D=64
@@ -375,11 +405,32 @@ U1_D2, U1_DMRG2_SWEEPS, U1_GAP_TOL, U1_SPEC_TOL, U1_S_TOL = 128, 4, 1e-8, \
     1e-12, 1e-6
 U1_QP_D, U1_QP_H, U1_QP_TOL = 64, 4.0, 1e-7
 # leg (c): symmetric TDVP of the quench XX -> XXZ(0.5) in complex64
-U1_TDVP_D, U1_TDVP_STEPS, U1_TDVP_DT, U1_TDVP_TOL = 256, 10, 0.05, 1e-5
+U1_TDVP_D, U1_TDVP_STEPS, U1_TDVP_DT, U1_TDVP_TOL = 256, 6, 0.05, 1e-5
 # leg (d): sector VUMPS of the XXX chain (two-site cell, charges +-1) and
 # the Z_2 gap of the parity TFIM
 U1_INF_D, U1_INF_TOL, Z2_D, Z2_G, Z2_GAP_TOL = 128, 1e-4, 48, 1.5, 1e-6
 U1_EXPAND = 16
+# phase 21: the SU(2) family in float64. Leg (a): the reduced VUMPS of the
+# spin-1 Heisenberg chain at scripts/bench_su2_reduced.py:34-38's width
+# (dense D=216) and settings, beside the plain dense VUMPS at D=216
+SU2_BOND, SU2_E0, SU2_E_TOL = ((1, 34), (3, 25), (5, 8)), -1.401484038971, \
+    1e-6
+SU2_TIMED, SU2_DENSE_WARM, SU2_DENSE_TIMED = 3, 2, 3
+# leg (b): the reduced Haldane gap (tests/test_su2_reduced_qp.py:303-313)
+SU2_QP_BOND, SU2_HALDANE, SU2_HALDANE_TOL, SU2_QP_DENSE_TOL = \
+    ((1, 8), (3, 5), (5, 1)), 0.41047925, 1e-4, 1e-6
+# legs (c)-(d): finite chains at L=32 in the total-spin-0 sector, DMRG2
+# capped at phase 9's two-site width (dense 256), then one-site DMRG; TDVP
+# from a narrower state after one DMRG2 sweep
+SU2_L, SU2_MAX_MULT, SU2_MAX_DENSE = 32, 40, 256
+SU2_DMRG2_SWEEPS, SU2_DMRG_SWEEPS, SU2_E_REL_TOL, SU2_EXPAND_TOL = 2, 1, \
+    1e-6, 1e-10
+SU2_TDVP_DENSE, SU2_TDVP_STEPS, SU2_TDVP_DT = 64, 2, 0.05
+SU2_TDVP_E_TOL, SU2_TDVP_NORM_TOL = 1e-6, 1e-10
+# leg (e): the dense-projector VUMPS at tests/test_su2.py:46-60's bond
+SU2_DENSE_BOND, SU2_DENSE_E_TOL = ((1, 4), (3, 2), (5, 1)), 5e-4
+# leg (f): card against CPU at small sizes
+SU2_SMALL_BOND, SU2_SMALL_L, SU2_CARD_TOL = ((1, 2), (3, 1)), 8, 1e-10
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -1210,6 +1261,7 @@ def phase_dmrg2_slice():
         raise RuntimeError("the returned environments disagree with fresh ones")
     if launches != 0:
         raise RuntimeError("DMRG2 launched K1: its bond solves must be exact")
+    return E64
 
 
 def phase_bonds(psi_vumps, psi_dmrg):
@@ -3590,6 +3642,449 @@ def phase_symmetric():
     return launches
 
 
+def _su2_state_to(st, device):
+    """An SU2ReducedState or SU2FiniteMPS with every block on `device`
+    (the legs draw their starts on the CPU, so that the card and the CPU
+    start from the same numbers)."""
+    import dataclasses
+
+    from mpskit_tpu_torch.symmetry import SU2ReducedState
+
+    if isinstance(st, SU2ReducedState):
+        return SU2ReducedState(*(b.to(device) for b in (st.AL, st.AR, st.AC,
+                                                         st.C)), st.tjp)
+    return dataclasses.replace(st, sites=tuple(s.to(device)
+                                               for s in st.sites))
+
+
+def _su2_reduced_start(mult, seed, device):
+    import torch
+    from mpskit_tpu_torch.symmetry import SU2Bond, SU2ReducedState
+
+    gen = torch.Generator().manual_seed(seed)
+    return _su2_state_to(SU2ReducedState.random(
+        SU2Bond(mult), 2, torch.float64, "cpu", gen), device)
+
+
+def _su2_finite_start(L, max_mult, seed, device, tj_max=None):
+    """A random spin-1 chain in the total-spin-0 sector on
+    `finite_bonds(L, 2, 0, max_mult)`, its bond sectors cut to 2j <=
+    tj_max when given (a low-spin start: the full fusion tree reaches 2j=L
+    at mid-chain, sectors that carry no weight in the ground state but
+    whose structure coefficients cost the host seconds to probe)."""
+    import torch
+    from mpskit_tpu_torch.symmetry import SU2FiniteMPS
+    from mpskit_tpu_torch.symmetry.su2_finite import _random_site, \
+        finite_bonds
+
+    gen = torch.Generator().manual_seed(seed)
+    if tj_max is None:
+        psi = SU2FiniteMPS.random(L, 2, 0, max_mult, torch.float64, "cpu",
+                                  gen)
+    else:
+        bonds = tuple(tuple((tj, m) for tj, m in b if tj <= tj_max)
+                      for b in finite_bonds(L, 2, 0, max_mult))
+        sites = tuple(_random_site(bonds[i], 2, bonds[i + 1], torch.float64,
+                                   "cpu", gen) for i in range(L))
+        psi = SU2FiniteMPS(sites, bonds, L - 1, 2).move_center(0).normalize()
+    return _su2_state_to(psi, device)
+
+
+def _su2_reduced_vumps():
+    """Leg (a): the reduced VUMPS of the spin-1 Heisenberg chain at dense
+    D=216 through find_groundstate from a random state; then steady
+    iterations at the converged state timed, counted in host syncs and
+    profiled; the plain dense VUMPS at D=216 timed at the same state
+    (embedded), and from a random state."""
+    import torch
+    from mpskit_tpu_torch import VUMPS, InfiniteMPS, find_groundstate, \
+        heisenberg_XXX
+    from mpskit_tpu_torch.algorithms.vumps import _vumps_iteration_impl
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.symmetry import SU2Bond, heisenberg_reduced, \
+        schmidt_spectrum_reduced
+    from mpskit_tpu_torch.symmetry import su2_reduced as tr
+    from mpskit_tpu_torch.utils import sync
+
+    mpo = heisenberg_reduced(2)
+    bond = SU2Bond(SU2_BOND)
+    st = _su2_reduced_start(SU2_BOND, 81, "cuda")
+    n_conv = [0]
+    inner = tr.reduced_vumps_iteration
+
+    def counted(*args, **kw):
+        n_conv[0] += 1
+        return inner(*args, **kw)
+
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    with _patched(tr, reduced_vumps_iteration=counted):
+        st, e, eps = find_groundstate(st, mpo, VUMPS(tol=1e-9, maxiter=60,
+                                                     krylovdim=10))
+    torch.cuda.synchronize()
+    t_conv, c_conv = time.perf_counter() - t0, sync.count - c0
+    log(f"[su2] a: reduced VUMPS dense D={bond.dim} float64 from a random "
+        f"state: e {e:.12f}, eps {eps:.2e}, {n_conv[0]} iterations in "
+        f"{t_conv:.2f} s ({t_conv / n_conv[0]:.3f} s and "
+        f"{c_conv / n_conv[0]:.0f} host syncs per iteration)")
+
+    # steady iterations at the converged state, bench_su2_reduced.py's
+    # settings (krylovdim 10, 2 restarts, inner tolerance 1e-6)
+    a = VUMPS_ARGS
+    carry = [st.AL, st.AR, st.AC, st.C, None, None]
+
+    def iteration():
+        AL, AR, AC, C, gls, grs = carry
+        with matmul_precision():
+            AL, AR, AC, C, eps_d, e_d, _, gls, grs = inner(
+                AL, AR, AC, C, mpo, 2, a["inner_tol"], a["m"],
+                a["restarts"], gls, grs)
+        carry[:] = [AL, AR, AC, C, gls, grs]
+        return sync.to_host(eps_d, e_d)
+
+    iteration()
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    for _ in range(SU2_TIMED):
+        iteration()
+    torch.cuda.synchronize()
+    t_it = (time.perf_counter() - t0) / SU2_TIMED
+    syncs = (sync.count - c0) / SU2_TIMED
+    terms, gemms = tr.rac_terms(carry[4], carry[5], mpo, carry[2])
+    plain = time.perf_counter()
+    iteration()
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - plain) * 1e3
+    busy, n_dev, by_name = _device_busy_ms(iteration)
+    idle = None if not busy else 1 - busy / plain
+    log(json.dumps({
+        "metric": "su2_reduced_vumps_iteration_time_heisenberg_s1_D216_"
+                  "float64", "value": t_it, "unit": "s",
+        "host_syncs_per_iteration": syncs, "gemm_terms_per_rac_apply": terms,
+        "gemms_per_rac_apply": gemms, "idle_share": idle,
+        "device_ops_per_iteration": n_dev,
+        "converging_s_per_iteration": t_conv / n_conv[0],
+        "converging_host_syncs_per_iteration": c_conv / n_conv[0],
+        "iterations_to_converge": n_conv[0]}))
+    log(f"[su2] a: one more iteration {plain:.1f} ms plainly; under "
+        "torch.profiler " + (f"busy {busy:.1f} ms, idle share {idle:.1%}"
+                             if busy else "no device time in the trace"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    for name, (ms, n) in top:
+        log(f"[su2] a: device op {ms:8.3f} ms {n:6d}x  {name[:90]}")
+
+    # the plain dense VUMPS at the same dense width: at the embedded
+    # converged state (the same regime), then from a random state
+    H = heisenberg_XXX(spin=1, dtype=np.float64)
+    ALd = tr.embed_site(carry[0], bond, 2, bond)[None]
+    Cd = tr.embed_c(carry[3], bond)[None]
+    emb = InfiniteMPS.from_AL(torch.as_tensor(ALd, device="cuda"),
+                              torch.as_tensor(Cd[0], device="cuda"),
+                              tol=a["gauge_tol"])
+    gen = torch.Generator(device="cuda").manual_seed(83)
+    dense = {}
+    for start, psi in (("converged", emb), ("random", InfiniteMPS.random(
+            1, 3, bond.dim, torch.float64, "cuda", gen))):
+        env = None
+        with matmul_precision():
+            for k in range(SU2_DENSE_WARM + SU2_DENSE_TIMED):
+                if k == SU2_DENSE_WARM:
+                    torch.cuda.synchronize()
+                    t0, c0 = time.perf_counter(), sync.count
+                psi, eps_d, env, _ = _vumps_iteration_impl(
+                    psi, H, **a, env_guess=env)
+                sync.to_host(eps_d)
+            torch.cuda.synchronize()
+        dense[start] = ((time.perf_counter() - t0) / SU2_DENSE_TIMED,
+                        (sync.count - c0) / SU2_DENSE_TIMED,
+                        float(env.e_density) / 4)
+    t_dense = dense["converged"][0]
+    log(json.dumps({
+        "metric": "dense_vumps_iteration_time_heisenberg_s1_D216_float64",
+        "value": t_dense, "unit": "s",
+        "host_syncs_per_iteration": dense["converged"][1],
+        "energy_density": dense["converged"][2],
+        "from_random_s_per_iteration": dense["random"][0],
+        "from_random_host_syncs_per_iteration": dense["random"][1]}))
+    log(f"[su2] a: reduced / dense iteration time at the converged state "
+        f"{t_it / t_dense:.2f}; while converging from random states "
+        f"{t_conv / n_conv[0] / dense['random'][0]:.2f}")
+
+    _gate("su2", "a: |e - E0| of the reduced VUMPS", abs(e - SU2_E0),
+          SU2_E_TOL)
+    _gate("su2", "a: |e - E0| of the dense VUMPS at the embedded state",
+          abs(dense["converged"][2] - SU2_E0), SU2_E_TOL)
+    spec = schmidt_spectrum_reduced(st)
+    want = np.sort(np.concatenate([np.repeat(v, tj + 1)
+                                   for tj, v in spec.items()]))[::-1]
+    dense_s = np.linalg.svd(tr.embed_c(st.C, bond), compute_uv=False)
+    _gate("su2", "a: dense Schmidt values against the (2j+1)-fold "
+          "multiplets", float(np.abs(dense_s - want).max()), 1e-10)
+    if set(spec) != {1, 3, 5} or spec[1][0] != max(v[0]
+                                                   for v in spec.values()):
+        raise RuntimeError("leg (a): the Schmidt multiplets are not the "
+                           "Haldane phase's (half-integer, j=1/2 largest)")
+
+
+def _su2_haldane():
+    """Leg (b): the reduced Haldane gap at dense D=42, p = pi, spin-1
+    excitation, against the oracle and the port's dense QP on the
+    embedded state."""
+    import torch
+    from mpskit_tpu_torch import VUMPS, QuasiparticleAnsatz, excitations, \
+        find_groundstate
+    from mpskit_tpu_torch.interop import infinite_mps_from_numpy, \
+        mpo_from_numpy
+    from mpskit_tpu_torch.symmetry import SU2Bond, heisenberg_reduced
+    from mpskit_tpu_torch.symmetry import su2_reduced as tr
+    from mpskit_tpu_torch.utils import sync
+
+    mpo = heisenberg_reduced(2)
+    bond = SU2Bond(SU2_QP_BOND)
+    st = _su2_reduced_start(SU2_QP_BOND, 85, "cuda")
+    st, e, eps = find_groundstate(st, mpo, VUMPS(tol=1e-9, maxiter=150))
+    torch.cuda.synchronize()
+    t0, c0 = time.perf_counter(), sync.count
+    es, _ = excitations(mpo, QuasiparticleAnsatz(tol=1e-7), np.pi, st,
+                        sector=2)
+    torch.cuda.synchronize()
+    t_qp, n_sync = time.perf_counter() - t0, sync.count - c0
+    gap = float(es[0, 0])
+    log(json.dumps({"metric": "su2_haldane_qp_solve_time_s1_D42_float64",
+                    "value": t_qp, "unit": "s", "host_syncs": n_sync,
+                    "gap": gap, "ground_eps": eps}))
+    # the port's dense quasiparticle solve on the embedded state
+    ALd = tr.embed_site(st.AL, bond, 2, bond)[None]
+    ARd = tr.embed_site(st.AR, bond, 2, bond)[None]
+    Cd = tr.embed_c(st.C, bond)[None]
+    psi = infinite_mps_from_numpy(
+        ALd, ARd, np.einsum("ilpm,imr->ilpr", ALd, Cd), Cd, device="cuda")
+    t0 = time.perf_counter()
+    es_d, _ = excitations(mpo_from_numpy(mpo.dense_fsm()[None]),
+                          QuasiparticleAnsatz(tol=1e-9), np.pi, psi, num=1)
+    log(f"[su2] b: reduced gap {gap:.10f} in {t_qp:.2f} s ({n_sync} host "
+        f"syncs); dense QP on the embedded state {float(es_d[0, 0]):.10f} "
+        f"in {time.perf_counter() - t0:.2f} s")
+    _gate("su2", "b: |gap - 0.41047925|", abs(gap - SU2_HALDANE),
+          SU2_HALDANE_TOL)
+    _gate("su2", "b: |reduced - dense QP on the embedded state|",
+          abs(gap - float(es_d[0, 0])), SU2_QP_DENSE_TOL)
+
+
+def _su2_finite(E64):
+    """Leg (c): SU2DMRG2 then SU2DMRG of the spin-1 Heisenberg chain at
+    L=32 in the total-spin-0 sector through find_groundstate from a
+    low-spin random start, each sweep timed; the energy against phase 9's
+    float64 continuation; then the middle bond grown by
+    expand_bond_reduced."""
+    import torch
+    from mpskit_tpu_torch import find_groundstate
+    from mpskit_tpu_torch.symmetry import (
+        SU2DMRG, SU2DMRG2, energy_reduced, expand_bond_reduced,
+        heisenberg_reduced,
+    )
+    from mpskit_tpu_torch.symmetry.su2_finite import _secs_dim
+    from mpskit_tpu_torch.utils import sync
+
+    mpo = heisenberg_reduced(2)
+    psi = _su2_finite_start(SU2_L, 4, 87, "cuda", tj_max=6)
+    rows = {"dmrg2": [], "dmrg": []}
+    e = None
+    for kind, n, alg in (
+            ("dmrg2", SU2_DMRG2_SWEEPS, SU2DMRG2(
+                tol=1e-12, maxiter=1, krylovdim=10, eig_maxrestarts=2,
+                max_mult=SU2_MAX_MULT, max_dense=SU2_MAX_DENSE)),
+            ("dmrg", SU2_DMRG_SWEEPS, SU2DMRG(tol=1e-12, maxiter=1,
+                                               krylovdim=10,
+                                               eig_maxrestarts=2))):
+        for k in range(n):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), sync.count
+            psi, e_new, _ = find_groundstate(psi, mpo, alg)
+            torch.cuda.synchronize()
+            width = max(_secs_dim(b) for b in psi.bonds)
+            rows[kind].append((time.perf_counter() - t0, sync.count - c0,
+                               e_new, width))
+            log(f"[su2] c: {kind} sweep {k + 1}: {rows[kind][-1][0]:.2f} s, "
+                f"{rows[kind][-1][1]} host syncs, E {4 * e_new:.12f}, widest "
+                f"dense bond {width}")
+            e = e_new
+    later2 = rows["dmrg2"][1:] or rows["dmrg2"]
+    later1 = rows["dmrg"]
+    width = max(_secs_dim(b) for b in psi.bonds)
+    log(json.dumps({
+        "metric": "su2_dmrg2_sweep_time_heisenberg_s1_L32_float64",
+        "value": sum(r[0] for r in later2) / len(later2), "unit": "s",
+        "host_syncs_per_sweep": sum(r[1] for r in later2) / len(later2),
+        "widest_dense_bond": max(r[3] for r in rows["dmrg2"]),
+        "max_mult": SU2_MAX_MULT, "max_dense": SU2_MAX_DENSE}))
+    log(json.dumps({
+        "metric": "su2_dmrg_sweep_time_heisenberg_s1_L32_float64",
+        "value": sum(r[0] for r in later1) / len(later1), "unit": "s",
+        "host_syncs_per_sweep": sum(r[1] for r in later1) / len(later1),
+        "widest_dense_bond": width}))
+    E = 4 * e
+    log(f"[su2] c: E (H = 4 S.S) {E:.12f} against phase 9's float64 "
+        f"continuation {E64:.12f}")
+    if not 200 <= width <= 256:
+        raise RuntimeError(f"leg (c): widest dense bond {width} is outside "
+                           "phase 9's two-site width, 200-256")
+    _gate("su2", "c: energy relative to phase 9's float64 continuation",
+          abs(E - E64) / abs(E64), SU2_E_REL_TOL)
+    e_before = energy_reduced(psi, mpo)
+    n0 = sum(m for _, m in psi.bonds[SU2_L // 2])
+    t0 = time.perf_counter()
+    grown = expand_bond_reduced(psi, mpo, SU2_L // 2, extra_mult=2)
+    n1 = sum(m for _, m in grown.bonds[SU2_L // 2])
+    log(f"[su2] c: expand_bond_reduced at bond {SU2_L // 2}: multiplets "
+        f"{n0} -> {n1} in {time.perf_counter() - t0:.2f} s")
+    if not n1 > n0:
+        raise RuntimeError("leg (c): expand_bond_reduced did not grow the "
+                           "bond")
+    _gate("su2", "c: |energy change| of the bond growth",
+          abs(energy_reduced(grown, mpo) - e_before), SU2_EXPAND_TOL)
+
+
+def _su2_tdvp():
+    """Leg (d): complex128 SU2TDVP through timestep at L=32 from a narrower
+    state after one DMRG2 sweep (no eigenstate), SU2_TDVP_STEPS steps of
+    dt=0.05."""
+    import torch
+    from mpskit_tpu_torch import find_groundstate, timestep
+    from mpskit_tpu_torch.symmetry import (
+        SU2DMRG2, SU2TDVP, energy_reduced, heisenberg_reduced,
+    )
+    from mpskit_tpu_torch.utils import sync
+
+    mpo = heisenberg_reduced(2)
+    psi = _su2_finite_start(SU2_L, 2, 89, "cuda", tj_max=4)
+    psi, _, _ = find_groundstate(psi, mpo, SU2DMRG2(
+        tol=1e-12, maxiter=1, krylovdim=10, eig_maxrestarts=2,
+        max_dense=SU2_TDVP_DENSE))
+    psi = psi.astype(torch.complex128)
+    e0, n0 = energy_reduced(psi, mpo), psi.norm()
+    rows = []
+    for k in range(SU2_TDVP_STEPS):
+        torch.cuda.synchronize()
+        t0, c0 = time.perf_counter(), sync.count
+        psi, _ = timestep(psi, mpo, k * SU2_TDVP_DT, SU2_TDVP_DT,
+                          SU2TDVP(dt=SU2_TDVP_DT, krylovdim=20))
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0, sync.count - c0))
+        log(f"[su2] d: step {k + 1}: {rows[-1][0]:.2f} s, {rows[-1][1]} "
+            f"host syncs, E {energy_reduced(psi, mpo):.12f}")
+    later = rows[1:] or rows
+    log(json.dumps({
+        "metric": "su2_tdvp_step_time_heisenberg_s1_L32_complex128",
+        "value": sum(r[0] for r in later) / len(later), "unit": "s",
+        "host_syncs_per_step": sum(r[1] for r in later) / len(later),
+        "widest_dense_bond": SU2_TDVP_DENSE}))
+    e1 = energy_reduced(psi, mpo)
+    _gate("su2", "d: energy drift, relative", abs(e1 - e0) / abs(e0),
+          SU2_TDVP_E_TOL)
+    _gate("su2", "d: norm drift", abs(psi.norm() - n0), SU2_TDVP_NORM_TOL)
+
+
+def _su2_dense_projector():
+    """Leg (e): the dense-projector SU(2) VUMPS at dense D=22."""
+    import torch
+    from mpskit_tpu_torch import VUMPS, heisenberg_XXX
+    from mpskit_tpu_torch.interop import su2_infinite_mps_from_numpy
+    from mpskit_tpu_torch.symmetry import (
+        SU2Bond, SU2InfiniteMPS, find_groundstate_su2_vumps,
+    )
+    from mpskit_tpu_torch.symmetry.su2 import (
+        su2_dense_schmidt_degeneracies, su2_schmidt_spectrum,
+    )
+
+    gen = torch.Generator().manual_seed(91)
+    sp = SU2InfiniteMPS.random(SU2Bond(SU2_DENSE_BOND), 2, torch.float64,
+                               "cpu", gen)
+    s = sp.state
+    sp = su2_infinite_mps_from_numpy(
+        *(x.numpy() for x in (s.AL, s.AR, s.AC, s.C)), SU2_DENSE_BOND, 2,
+        device="cuda")
+    t0 = time.perf_counter()
+    sp, envs, eps = find_groundstate_su2_vumps(
+        sp, heisenberg_XXX(spin=1, dtype=np.float64),
+        VUMPS(tol=1e-9, maxiter=300))
+    e = float(envs.e_density)
+    ok, s_dense = su2_dense_schmidt_degeneracies(sp, atol=1e-9)
+    log(f"[su2] e: projected VUMPS D={sp.bond.dim}: e {e:.10f}, eps "
+        f"{eps:.2e}, {time.perf_counter() - t0:.2f} s, multiplet sectors "
+        f"{sorted(su2_schmidt_spectrum(sp))}")
+    _gate("su2", "e: |e - 4 E0|", abs(e - 4 * SU2_E0), SU2_DENSE_E_TOL)
+    if not (ok and eps < 1e-8):
+        raise RuntimeError("leg (e): not converged or the dense Schmidt "
+                           "spectrum is not multiplet-degenerate")
+
+
+def _su2_card_vs_cpu():
+    """Leg (f): (a)-(d) at small sizes on the card and on the CPU from the
+    same starts."""
+    import torch
+    from mpskit_tpu_torch import (
+        VUMPS, QuasiparticleAnsatz, excitations, find_groundstate, timestep,
+    )
+    from mpskit_tpu_torch.symmetry import (
+        SU2DMRG2, SU2TDVP, energy_reduced, heisenberg_reduced,
+    )
+
+    mpo = heisenberg_reduced(2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = _su2_reduced_start(SU2_SMALL_BOND, 93, dev)
+        st, e, _ = find_groundstate(st, mpo, VUMPS(tol=1e-11, maxiter=200))
+        es, _ = excitations(mpo, QuasiparticleAnsatz(tol=1e-10), np.pi, st)
+        psi = _su2_finite_start(SU2_SMALL_L, 2, 95, dev)
+        psi, E, _ = find_groundstate(psi, mpo, SU2DMRG2(tol=1e-12,
+                                                        maxiter=8,
+                                                        max_mult=4))
+        psi = _su2_finite_start(SU2_SMALL_L, 2, 97, dev)
+        psi, _, _ = find_groundstate(psi, mpo, SU2DMRG2(
+            tol=1e-12, maxiter=1, max_mult=2))
+        psi = psi.astype(torch.complex128)
+        for k in range(2):
+            psi, _ = timestep(psi, mpo, k * 0.05, 0.05, SU2TDVP(dt=0.05))
+        spec = psi.schmidt(SU2_SMALL_L // 2)
+        out[dev] = (e, float(es[0, 0]), E, energy_reduced(psi, mpo),
+                    np.concatenate([spec[k] for k in sorted(spec)]))
+    c, h = out["cuda"], out["cpu"]
+    for k, name in enumerate(("a: reduced VUMPS energy", "b: reduced gap",
+                              "c: DMRG2 energy", "d: TDVP energy")):
+        _gate("su2", f"f: card against CPU, {name}", abs(c[k] - h[k]),
+              SU2_CARD_TOL)
+    # the split's singular vectors may differ in sign between cuSOLVER and
+    # LAPACK: the evolved states are compared by their Schmidt values
+    _gate("su2", "f: card against CPU, d: middle Schmidt values after the "
+          "steps", float(np.abs(c[4] - h[4]).max()), SU2_CARD_TOL)
+
+
+def phase_su2(E64):
+    """Phase 21: the SU(2) family. Returns K1's launches in it (gated 0:
+    no SU(2) path runs the kernel)."""
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    k1.launches = 0
+    legs = {}
+    for name, fn, args in (("a", _su2_reduced_vumps, ()),
+                           ("b", _su2_haldane, ()),
+                           ("c", _su2_finite, (E64,)),
+                           ("d", _su2_tdvp, ()),
+                           ("e", _su2_dense_projector, ()),
+                           ("f", _su2_card_vs_cpu, ())):
+        t0 = time.perf_counter()
+        fn(*args)
+        legs[name] = time.perf_counter() - t0
+    launches = k1.launches
+    log("[su2] seconds per leg: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()) + f"; K1 launches in this "
+        f"phase: {launches}")
+    if launches != 0:
+        raise RuntimeError("phase 21 launched K1: no SU(2) path runs it")
+    return launches
+
+
 def phase_measure():
     """Phase 17: the measurement surface on three ground states with exact
     oracles, and K1 at leg (a)'s shape (w=4) and on its general path."""
@@ -3636,7 +4131,7 @@ def main():
     psi_vumps = timed(phase_vumps_f64)
     timed(phase_vumps_slice)
     timed(phase_dmrg2_f64)
-    timed(phase_dmrg2_slice)
+    E64_dmrg2 = timed(phase_dmrg2_slice)
     timed(phase_bonds, psi_vumps, psi_dmrg)
     timed(phase_tdvp_f64)
     launches_tdvp = timed(phase_tdvp_slice)
@@ -3647,6 +4142,7 @@ def main():
     launches_window, k1_window = timed(phase_windows)
     launches_rsdmrg = timed(phase_rsdmrg)
     launches_u1 = timed(phase_symmetric)
+    launches_su2 = timed(phase_su2, E64_dmrg2)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -3677,7 +4173,7 @@ def main():
         "launches_rsdmrg_warmup": launches_rsdmrg["warmup"],
         "launches_rsdmrg_rounds": launches_rsdmrg["rounds"],
         "launches_rsdmrg_segments_cold": launches_rsdmrg["segments_cold"],
-        "launches_u1": launches_u1}]}))
+        "launches_u1": launches_u1, "launches_su2": launches_su2}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

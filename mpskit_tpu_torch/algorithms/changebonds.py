@@ -31,6 +31,7 @@ from ..states.finitemps import FiniteMPS, support_mask
 from ..states.infinitemps import InfiniteMPS
 from ..states.multiline import MPSMultiline
 from ..states.quasiparticle import full_gauges
+from ..symmetry.su2_finite import SU2FiniteMPS, expand_bond_reduced
 from ..tensors.ops import (
     TruncationScheme, leftnull, notrunc, rightnull, rightorth, svd_truncated,
 )
@@ -120,10 +121,19 @@ def changebonds(psi, *args, device="cuda"):
     if isinstance(psi, DenseMPO):
         d = psi.site(0).shape[2]
         return mps_to_mpo(changebonds(mpo_to_mps(psi, device), alg), d)
+    if isinstance(psi, SU2FiniteMPS):
+        # OptimalExpand grows MULTIPLET counts per bond from the projected
+        # two-site derivative, as in the JAX package
+        if not isinstance(alg, OptimalExpand):
+            raise TypeError(
+                f"SU2FiniteMPS supports OptimalExpand, got {type(alg)}")
+        if H is None:
+            raise ValueError("OptimalExpand needs the Hamiltonian")
+        for bond in range(1, psi.length):
+            psi = expand_bond_reduced(psi, H, bond, extra_mult=alg.dims)
+        return psi
     if not isinstance(psi, (FiniteMPS, InfiniteMPS)):
-        raise NotImplementedError(
-            f"changebonds on a {type(psi).__name__} is not ported yet: "
-            "SU(2)-reduced chains come with queue-1 item 11 (ROADMAP.md)")
+        raise TypeError(f"changebonds does not manage a {type(psi).__name__}")
 
     if isinstance(alg, SvdCut):
         if isinstance(psi, FiniteMPS):

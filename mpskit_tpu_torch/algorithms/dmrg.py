@@ -74,11 +74,23 @@ def _galerkin_right(AR, y):
     return torch.linalg.vector_norm(y - torch.einsum("lm,mpr->lpr", z, AR))
 
 
-def _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth, use_fast):
+def _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth, use_fast,
+                mask=None):
+    """The site eigensolve. With a charge mask the solve itself runs in the
+    sector: the matvec is x -> m * H(m * x) (the fast probe too) and the
+    start vector m * AC. Masking only the eigenvector lets the Krylov space
+    pick up rounding outside the sector and converge to a lower foreign
+    sector (ROADMAP.md, F6). Without a mask the path is unchanged."""
+    if mask is None:
+        return eigsh_smallest(
+            lambda x: ac_apply(GL, W, GR, x), AC, m, restarts, inner_tol,
+            reorth=reorth,
+            matvec_fast=(lambda x: ac_apply_fast(GL, W, GR, x))
+            if use_fast else None)
     return eigsh_smallest(
-        lambda x: ac_apply(GL, W, GR, x), AC, m, restarts, inner_tol,
-        reorth=reorth,
-        matvec_fast=(lambda x: ac_apply_fast(GL, W, GR, x))
+        lambda x: mask * ac_apply(GL, W, GR, mask * x), mask * AC, m,
+        restarts, inner_tol, reorth=reorth,
+        matvec_fast=(lambda x: mask * ac_apply_fast(GL, W, GR, mask * x))
         if use_fast else None)
 
 
@@ -86,7 +98,7 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
                      restarts: int, GL0=None, GRL=None, masks=None,
                      bulk_flags=None, reorth: str = "local1",
                      use_fast: bool = True, cheap_galerkin: bool = False,
-                     split_dtype=None):
+                     split_dtype=None, sector_solve: bool = False):
     """One full DMRG sweep (L2R over sites 0..L-2, R2L over L-1..1),
     starting and ending with center = 0.
 
@@ -95,7 +107,10 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
     1 (the last solved), the largest per-site residual and the solver
     diagnostics (n_unconverged, worst_residual). GL0/GRL override the
     open-chain boundary environments; masks is the (L, D, d, D) support
-    mask, bulk_flags the host (bulkL, bulkR) of `bulk_rank_flags`.
+    (or charge) mask, bulk_flags the host (bulkL, bulkR) of
+    `bulk_rank_flags`. sector_solve (with charge masks) runs each site
+    solve inside the mask (`_solve_site`); the support masks of the plain
+    and RS-DMRG sweeps only mask the result.
 
     split_dtype: the dtype of the gauge moves' QR / LQ (default the
     state's). A charge mask leaves rank-deficient blocks in an arbitrary
@@ -130,7 +145,7 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
         GLs[i] = GL
         W, GR = Ws[i], GRs[i + 1]
         res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
-                          use_fast)
+                          use_fast, maskf[i] if sector_solve else None)
         ACp = res.eigenvector * maskf[i]
         ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
         AL, C = orth_in(leftorth_hybrid, ACp, split_dtype, bool(bulkL[i]))
@@ -151,7 +166,7 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
         GRs[i + 1] = GR
         W, GL = Ws[i], GLs[i]
         res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
-                          use_fast)
+                          use_fast, maskf[i] if sector_solve else None)
         ACp = res.eigenvector * maskf[i]
         ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
         C, AR = orth_in(rightorth_hybrid, ACp, split_dtype, bool(bulkR[i]))

@@ -47,6 +47,7 @@ from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from ..states.quasiparticle import FiniteQP, LeftGaugedQP, _randn
 from ..symmetry.charges import SymmetricFiniteMPS, SymmetricInfiniteMPS
+from ..symmetry.su2_reduced import ReducedMPO
 from ..utils.sync import to_host
 from .derivatives import ac_apply
 
@@ -398,13 +399,40 @@ def _excitations_finite_B(alg, qp0, Ws, GLs, GRs, E0, E0_host, fmask, num,
 # dispatch
 # ----------------------------------------------------------------------------
 
+def _excitations_reduced(H, alg, args, kwargs):
+    """excitations(ReducedMPO, QuasiparticleAnsatz(), momenta,
+    SU2ReducedState, num=, generator=, sector=2j): the SU(2)-reduced
+    quasiparticles in the spin sector/2 multiplet (default 2, the adjoint),
+    as in the JAX package."""
+    from ..symmetry.su2_reduced_qp import excitations_su2_reduced
+
+    if not isinstance(alg, QuasiparticleAnsatz):
+        raise TypeError(
+            "ReducedMPO excitations support only QuasiparticleAnsatz, "
+            f"got {type(alg).__name__}")
+    momenta, psi = args[0], args[1]
+    kwargs = dict(kwargs)
+    tke = kwargs.pop("sector", 2)
+    unknown = set(kwargs) - {"num", "generator"}
+    if unknown:
+        raise TypeError(
+            f"excitations(ReducedMPO, ...): unsupported keyword(s) "
+            f"{sorted(unknown)}; the reduced path accepts num/generator/"
+            "sector")
+    return excitations_su2_reduced(
+        H, psi, momenta, tke=tke, tol=alg.tol, krylovdim=alg.krylovdim,
+        maxrestarts=alg.maxrestarts, env_tol=alg.env_tol, **kwargs)
+
+
 def excitations(H, alg, *args, **kwargs):
     """excitations(H, QuasiparticleAnsatz(), momenta, psi_inf, ...),
     excitations(H, QuasiparticleAnsatz(), psi_finite, ...),
     excitations(H, FiniteExcited(), psi_finite, ...), or for a transfer
     MPO excitations(O_dense, QuasiparticleAnsatz(), momenta, psi_boundary,
     envs=, generator=, krylovdim=, tol=) (`excitations_boundary`: the
-    dominant eigenvalues relative to the boundary's, a CPU tensor)."""
+    dominant eigenvalues relative to the boundary's, a CPU tensor), or for
+    a ReducedMPO excitations(H, QuasiparticleAnsatz(), momenta,
+    SU2ReducedState, num=, sector=2j) (`excitations_su2_reduced`)."""
     from .dmrgexcitation import FiniteExcited, excitations_dmrg
 
     if isinstance(H, DenseMPO) and isinstance(alg, QuasiparticleAnsatz):
@@ -417,10 +445,11 @@ def excitations(H, alg, *args, **kwargs):
     if isinstance(H, DenseMPO):
         raise TypeError("excitations of a transfer MPO (DenseMPO) take "
                         f"QuasiparticleAnsatz, got {type(alg).__name__}")
+    if isinstance(H, ReducedMPO):
+        return _excitations_reduced(H, alg, args, kwargs)
     if not isinstance(H, MPOHamiltonian):
-        raise NotImplementedError(
-            f"excitations of a {type(H).__name__} are not ported yet: "
-            "reduced SU(2) MPOs come with queue-1 item 11 (ROADMAP.md)")
+        raise TypeError(f"excitations of a {type(H).__name__}: H must be an "
+                        "MPOHamiltonian, a ReducedMPO or a DenseMPO")
     if isinstance(alg, QuasiparticleAnsatz):
         if isinstance(args[0], (FiniteMPS, SymmetricFiniteMPS)):
             return excitations_finite(H, alg, *args, **kwargs)

@@ -13,6 +13,13 @@ from ..symmetry.charges import (
     SymmetricFiniteMPS, SymmetricInfiniteMPS, find_groundstate_symmetric,
     find_groundstate_symmetric_dmrg2, find_groundstate_symmetric_infinite,
 )
+from ..symmetry.su2_finite import (
+    SU2DMRG, SU2DMRG2, SU2FiniteMPS, find_groundstate_su2_finite_dmrg,
+    find_groundstate_su2_finite_dmrg2,
+)
+from ..symmetry.su2_reduced import (
+    ReducedMPO, SU2ReducedState, find_groundstate_su2_reduced,
+)
 from .dmrg import DMRG, find_groundstate_dmrg, find_groundstate_dmrg_window
 from .dmrg2 import DMRG2, find_groundstate_dmrg2
 from .grassmann import (
@@ -49,8 +56,11 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     the sector DMRG (`find_groundstate_symmetric`, DMRG2 its two-site
     form), a SymmetricInfiniteMPS the sector VUMPS. A LazySum is
     materialized by `sum_materialized()`, a MultipliedOperator by
-    `eval_at(0.0)`. The SU(2) and anyonic states come with a later slice
-    and raise NotImplementedError naming queue-1 item 11 (ROADMAP.md)."""
+    `eval_at(0.0)`. An SU2ReducedState runs the reduced VUMPS and returns
+    (state, e_density, eps); an SU2FiniteMPS runs the reduced DMRG2 /
+    DMRG (the generic DMRG and DMRG2 translate) and returns (psi, E, eps);
+    both need a ReducedMPO. The anyonic states come with a later slice and
+    raise NotImplementedError naming queue-1 item 11b (ROADMAP.md)."""
     if isinstance(H, LazySum):
         # a time-independent sum is materialized eagerly: the summed FSM is
         # one wider MPO, the fastest form for the matvecs
@@ -58,6 +68,8 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     elif isinstance(H, MultipliedOperator):
         H = H.eval_at(0.0)
     kw = {} if verbosity is None else {"verbosity": verbosity}
+    if isinstance(psi, (SU2ReducedState, SU2FiniteMPS)):
+        return _find_groundstate_su2(psi, H, alg, tol, maxiter)
     if isinstance(psi, WindowMPS):
         if not isinstance(alg, (DMRG, ChainedAlg)):
             raise TypeError(f"{type(alg).__name__} does not run on a "
@@ -77,8 +89,7 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     elif not isinstance(psi, (FiniteMPS, InfiniteMPS)):
         raise NotImplementedError(
             f"find_groundstate for {type(psi).__name__} is not ported yet: "
-            "SU(2) and anyonic states come with queue-1 item 11 "
-            "(ROADMAP.md)")
+            "anyonic states come with queue-1 item 11b (ROADMAP.md)")
     if isinstance(alg, ChainedAlg):
         envs_out, eps = envs, None
         for stage in alg:
@@ -109,3 +120,45 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
         raise TypeError(
             f"{type(alg).__name__} does not run on {type(psi).__name__}")
     raise TypeError(type(alg))
+
+
+def _find_groundstate_su2(psi, H, alg, tol, maxiter):
+    """The SU(2)-reduced branches of `find_groundstate`, as in the JAX
+    package: the uniform state takes VUMPS, the finite chain DMRG2 then
+    DMRG (alg None), SU2DMRG(2), or the generic DMRG / DMRG2 translated."""
+    if not isinstance(H, ReducedMPO):
+        raise TypeError(
+            f"{type(psi).__name__} needs a ReducedMPO, got {type(H)}")
+    if isinstance(psi, SU2ReducedState):
+        if alg is not None and not isinstance(alg, VUMPS):
+            raise TypeError(
+                f"uniform SU2ReducedState supports VUMPS, got {type(alg)}; "
+                "finite-chain algorithms run on SU2FiniteMPS")
+        a = alg or VUMPS(tol=max(tol, 1e-9), maxiter=maxiter)
+        return find_groundstate_su2_reduced(
+            psi, H, tol=a.tol, maxiter=a.maxiter, krylovdim=a.krylovdim,
+            verbosity=getattr(a, "verbosity", 0))
+    if alg is None:
+        psi, e, eps = find_groundstate_su2_finite_dmrg2(
+            psi, H, SU2DMRG2(tol=max(tol, 1e-10), maxiter=maxiter))
+        if eps > tol:
+            psi, e, eps = find_groundstate_su2_finite_dmrg(
+                psi, H, SU2DMRG(tol=tol, maxiter=maxiter))
+        return psi, e, eps
+    if isinstance(alg, SU2DMRG):
+        return find_groundstate_su2_finite_dmrg(psi, H, alg)
+    if isinstance(alg, SU2DMRG2):
+        return find_groundstate_su2_finite_dmrg2(psi, H, alg)
+    if isinstance(alg, DMRG):
+        return find_groundstate_su2_finite_dmrg(
+            psi, H, SU2DMRG(tol=alg.tol, maxiter=alg.maxiter,
+                            krylovdim=alg.krylovdim,
+                            verbosity=alg.verbosity))
+    if isinstance(alg, DMRG2):
+        return find_groundstate_su2_finite_dmrg2(
+            psi, H, SU2DMRG2(tol=alg.tol, maxiter=alg.maxiter,
+                             krylovdim=alg.krylovdim,
+                             verbosity=alg.verbosity))
+    raise TypeError(
+        f"SU2FiniteMPS supports DMRG/DMRG2 (or SU2DMRG/SU2DMRG2), "
+        f"got {type(alg)}")

@@ -40,17 +40,15 @@ from ..states.windowmps import WindowMPS
 from ..symmetry.charges import (
     SymmetricFiniteMPS, SymmetricInfiniteMPS, masked_split_dtype,
 )
+from ..symmetry.su2_finite import (
+    SU2FiniteMPS, SU2TDVP, timestep_su2_finite_tdvp,
+)
 from ..tensors.ops import (
     leftorth, notrunc, orth_in, rightorth, svd_truncated,
 )
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.logging import logger
 from .derivatives import ac2_apply, ac_apply, c_apply
-
-# states of the JAX package that the port does not have yet, and the
-# queue-1 item (ROADMAP.md) that brings each
-_NOT_PORTED = {"SU2FiniteMPS": 11}
-
 
 @dataclasses.dataclass(frozen=True)
 class TDVP:
@@ -89,14 +87,6 @@ def _warn_exp(alg, exp_err: float, env_resid=None, name="TDVP"):
     if env_resid is not None and env_resid > 1e-6:
         logger.warning("%s: environment geometric-series GMRES residual "
                        "%.4e (not converged)", name, env_resid)
-
-
-def _not_ported(obj):
-    item = _NOT_PORTED.get(type(obj).__name__)
-    if item is not None:
-        raise NotImplementedError(
-            f"timestep on a {type(obj).__name__} is not ported yet: it comes "
-            f"with queue-1 item {item} (ROADMAP.md)")
 
 
 def _require_complex(dtype):
@@ -264,8 +254,19 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
     TDVP step under Window.left / Window.right, then the window evolves
     under Window.middle against the updated fixed points, and the returned
     envs are the pair (left, right) of infinite environments to pass back.
-    Under a plain operator the boundaries stay frozen and envs is None."""
-    _not_ported(psi)
+    Under a plain operator the boundaries stay frozen and envs is None.
+    An SU2FiniteMPS (complex) under a ReducedMPO takes one reduced
+    one-site TDVP step (SU2TDVP, or TDVP's Krylov dimension capped at 24)
+    and returns envs None."""
+    if isinstance(psi, SU2FiniteMPS):
+        # SU(2)-reduced finite TDVP, as in the JAX package
+        alg = TDVP() if alg is None else alg
+        a = (dataclasses.replace(alg, dt=dt) if isinstance(alg, SU2TDVP)
+             else SU2TDVP(dt=dt, krylovdim=min(alg.expalg_m, 24)))
+        psi, exp_err = timestep_su2_finite_tdvp(psi, H, a)
+        if not isinstance(alg, SU2TDVP):
+            _warn_exp(alg, exp_err, name="TDVP(SU2-reduced finite)")
+        return psi, None
     if isinstance(H, Window):
         H = H.map(lambda O: _materialize(O, t + dt / 2))
         for O in (H.left, H.middle, H.right):

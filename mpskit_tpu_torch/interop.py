@@ -13,6 +13,9 @@ from .states.infinitemps import InfiniteMPS
 from .states.quasiparticle import FiniteQP, LeftGaugedQP
 from .states.windowmps import WindowMPS
 from .symmetry.charges import SymmetricFiniteMPS, SymmetricInfiniteMPS
+from .symmetry.su2 import SU2Bond, SU2InfiniteMPS
+from .symmetry.su2_finite import SU2FiniteMPS
+from .symmetry.su2_reduced import RBlocks, SU2ReducedState
 
 
 def finite_mps_from_numpy(ALs, ARs, AC, center: int,
@@ -113,3 +116,41 @@ def dense_mpo_from_numpy(Os) -> DenseMPO:
     """Host DenseMPO from a sequence of (w_l, w_r, d, d) site arrays, e.g.
     `np.asarray` of a JAX DenseMPO's `Os`."""
     return DenseMPO(tuple(np.array(o, copy=True) for o in Os))
+
+
+def rblocks_from_numpy(keys, blocks, device="cuda") -> RBlocks:
+    """RBlocks from static keys and numpy blocks, e.g. `keys` and
+    `[np.asarray(v) for v in vals]` of a JAX RBlocks, on the card unless
+    `device` says otherwise."""
+    return RBlocks.from_blocks(
+        tuple(tuple(int(q) for q in k) for k in keys),
+        [torch.from_numpy(np.array(b, copy=True)).to(device)
+         for b in blocks])
+
+
+def su2_reduced_state_from_numpy(AL, AR, AC, C, tjp: int,
+                                 device="cuda") -> SU2ReducedState:
+    """SU2ReducedState from the (keys, blocks) pairs of a JAX one's AL, AR,
+    AC and C, on the card unless `device` says otherwise."""
+    return SU2ReducedState(*(rblocks_from_numpy(k, b, device)
+                             for k, b in (AL, AR, AC, C)), int(tjp))
+
+
+def su2_finite_mps_from_numpy(sites, bonds, center: int, tjp: int,
+                              device="cuda") -> SU2FiniteMPS:
+    """SU2FiniteMPS from a JAX one's sites as (keys, blocks) pairs, its
+    bond sector tuples, center and physical 2j."""
+    return SU2FiniteMPS(
+        tuple(rblocks_from_numpy(k, b, device) for k, b in sites),
+        tuple(tuple((int(tj), int(m)) for tj, m in b) for b in bonds),
+        int(center), int(tjp))
+
+
+def su2_infinite_mps_from_numpy(AL, AR, AC, C, multiplets, tjp: int,
+                                device="cuda") -> SU2InfiniteMPS:
+    """SU2InfiniteMPS from the stacked (1, D, d, D) AL/AR/AC and (1, D, D)
+    C of a JAX one, its bond multiplets ((2j, mult), ...) and physical
+    2j."""
+    return SU2InfiniteMPS(
+        infinite_mps_from_numpy(AL, AR, AC, C, device=device),
+        SU2Bond(tuple((int(tj), int(m)) for tj, m in multiplets)), int(tjp))

@@ -1,8 +1,10 @@
-"""Abelian (U(1) / Z_n) symmetric states of the PyTorch port: static bond
-charge labels, conservation masks, the sector-constrained solvers, the
-sector-resolved entanglement spectra and the sector-aware bond expansion.
-The SU(2) and anyonic backends of the JAX package come with later slices
-(ROADMAP.md, queue-1 item 11)."""
+"""Symmetric states of the PyTorch port: the abelian (U(1) / Z_n) static
+bond charge labels, conservation masks, sector-constrained solvers,
+sector-resolved entanglement spectra and sector-aware bond expansion; and
+the SU(2) family (the dense-projector uniform states, the reduced
+fusion-tree VUMPS, finite DMRG / DMRG2 / TDVP and quasiparticles). The
+category / anyon backends of the JAX package come with a later slice
+(ROADMAP.md, queue-1 item 11b)."""
 
 from .charges import (
     DEAD_LABEL,
@@ -23,4 +25,32 @@ from .expand import (
     changebonds_symmetric,
     expand_symmetric_finite,
     expand_symmetric_infinite,
+)
+from .su2 import (
+    SU2Bond,
+    SU2InfiniteMPS,
+    find_groundstate_su2_vumps,
+)
+from .su2_reduced import (
+    SU2ReducedState,
+    ReducedMPO,
+    heisenberg_reduced,
+    bilinear_biquadratic_reduced,
+    find_groundstate_su2_reduced,
+    schmidt_spectrum_reduced,
+)
+from .su2_reduced_qp import (
+    ReducedQP,
+    excitations_su2_reduced,
+)
+from .su2_finite import (
+    SU2FiniteMPS,
+    SU2DMRG,
+    SU2DMRG2,
+    SU2TDVP,
+    find_groundstate_su2_finite_dmrg,
+    find_groundstate_su2_finite_dmrg2,
+    expand_bond_reduced,
+    timestep_su2_finite_tdvp,
+    energy_reduced,
 )

@@ -454,7 +454,7 @@ def find_groundstate_symmetric(spsi: SymmetricFiniteMPS, H, alg=None):
             ALs, ARs, AC, GRs, _, eps, _ = _dmrg_sweep_impl(
                 ALs, ARs, AC, Ws, GRs, updatetol(eps, it), alg.krylovdim,
                 alg.eig_maxrestarts, masks=masks, reorth="local",
-                split_dtype=masked_split_dtype(dtype))
+                split_dtype=masked_split_dtype(dtype), sector_solve=True)
             if eps < alg.tol:
                 break
         psi = FiniteMPS(ALs, ARs, AC, 0)
@@ -566,6 +566,18 @@ def _sector_split(theta, cl: np.ndarray, cr: np.ndarray, phys: np.ndarray,
     return (AL.reshape(D, d, D), S, AR.reshape(D, d, D), labels_mid, err)
 
 
+def _theta_mask(cl: np.ndarray, cr: np.ndarray, phys: np.ndarray,
+                modulus: int = None) -> np.ndarray:
+    """(D, d, d, D) boolean sector mask of a two-site tensor between bonds
+    of labels cl and cr: cl + p1 + p2 == cr (mod n for Z_n), on live
+    labels only."""
+    live = (cl[:, None, None, None] < DEAD_LABEL) & \
+        (cr[None, None, None, :] < DEAD_LABEL)
+    q = (cl[:, None, None, None] + phys[None, :, None, None]
+         + phys[None, None, :, None] - cr[None, None, None, :])
+    return (_reduce(q, modulus) == 0) & live
+
+
 def find_groundstate_symmetric_dmrg2(spsi: SymmetricFiniteMPS, H, alg=None):
     """Sector-resolved two-site DMRG with dynamic sector allocation: every
     bond split re-derives how many Schmidt vectors each charge sector
@@ -596,10 +608,16 @@ def find_groundstate_symmetric_dmrg2(spsi: SymmetricFiniteMPS, H, alg=None):
         GLs = [left_boundary(w, D, dtype, device)] * (L + 1)
 
         def solve(i, theta, inner_tol):
+            # the solve runs in the sector (x -> m * H(m * x) from m * theta):
+            # an unmasked Krylov space drifts to a lower foreign sector
+            # (ROADMAP.md, F6)
             GL, W1, W2, GR = GLs[i], Ws[i], Ws[i + 1], GRs[i + 2]
-            res = eigsh_smallest(lambda x: ac2_apply(GL, W1, W2, GR, x),
-                                 theta, alg.krylovdim, alg.eig_maxrestarts,
-                                 inner_tol)
+            m = torch.as_tensor(_theta_mask(bonds[i], bonds[i + 2], phys,
+                                            spsi.modulus),
+                                device=device).to(dtype)
+            res = eigsh_smallest(
+                lambda x: m * ac2_apply(GL, W1, W2, GR, m * x), m * theta,
+                alg.krylovdim, alg.eig_maxrestarts, inner_tol)
             AL, S, AR, labq, _ = _sector_split(
                 res.eigenvector, bonds[i], bonds[i + 2], phys,
                 pad=10**6 * (i + 2), modulus=spsi.modulus)

@@ -51,12 +51,16 @@ def transfer_plot(psi, num: int = 10, ax=None):
 def entanglement_plot_data_sectors(psi, bond=None):
     """{sector label: Schmidt values} of an abelian-symmetric state (a
     SymmetricFiniteMPS at `bond`, the middle one by default, or a
-    SymmetricInfiniteMPS at a unit-cell bond, the last by default); a
-    plain state gives {None: its spectrum}. The SU(2)-reduced states come
-    with queue-1 item 11 (ROADMAP.md)."""
+    SymmetricInfiniteMPS at a unit-cell bond, the last by default), or
+    {2j: multiplet Schmidt values} of an SU2ReducedState (each value a
+    (2j+1)-fold degenerate dense multiplet); a plain state gives
+    {None: its spectrum}."""
     from ..symmetry.charges import (
         SymmetricFiniteMPS, SymmetricInfiniteMPS,
         sector_entanglement_spectrum, sector_entanglement_spectrum_infinite,
+    )
+    from ..symmetry.su2_reduced import (
+        SU2ReducedState, schmidt_spectrum_reduced,
     )
 
     if isinstance(psi, SymmetricFiniteMPS):
@@ -66,10 +70,8 @@ def entanglement_plot_data_sectors(psi, bond=None):
     if isinstance(psi, SymmetricInfiniteMPS):
         return sector_entanglement_spectrum_infinite(
             psi, -1 if bond is None else bond)
-    if type(psi).__name__ == "SU2ReducedState":
-        raise NotImplementedError(
-            "the sector spectrum of an SU2ReducedState comes with queue-1 "
-            "item 11 (ROADMAP.md)")
+    if isinstance(psi, SU2ReducedState):
+        return schmidt_spectrum_reduced(psi)
     return {None: entanglement_plot_data(psi, bond)}
 
 

@@ -231,10 +231,10 @@ def test_chained_changebonds():
                                        ("MPSMultiline", 9), ("DenseMPO", 9),
                                        ("MPOMultiline", 9)])
 def test_branches_not_ported_raise(name, item):
-    """Each branch of the JAX dispatchers the port lacks raises
-    NotImplementedError naming its queue-1 item; the multi-row and MPO
-    branches, which item 9 brought, return their own container; misuse
-    raises the matching error."""
+    """The branches that items 9 and 11 brought: the multi-row and MPO
+    branches return their own container, the SU(2)-reduced chain takes
+    OptimalExpand only and a stand-in raises TypeError; misuse raises the
+    matching error."""
     if item == 9:
         from mpskit_tpu_torch import (
             DenseMPO, MPOMultiline, MPSMultiline, classical_ising,
@@ -256,9 +256,15 @@ def test_branches_not_ported_raise(name, item):
                 S = torch.linalg.svdvals(r.C[0])
                 assert int((S > 1e-12).sum()) <= 4 < r.D
     else:
-        state = type(name, (), {})()
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            changebonds(state, SvdCut())
+        # item 11's SU2FiniteMPS is ported (tests/test_torch_su2_finite.py):
+        # a stand-in is no state, and the reduced chain takes OptimalExpand
+        # only, as in the JAX package
+        from mpskit_tpu_torch.symmetry import SU2FiniteMPS
+        with pytest.raises(TypeError):
+            changebonds(type(name, (), {})(), SvdCut())
+        su2 = SU2FiniteMPS.random(4, 2, max_mult=2, device="cpu")
+        with pytest.raises(TypeError, match="OptimalExpand"):
+            changebonds(su2, SvdCut())
     H = transverse_field_ising_lattice(g=1.5)
     fin = FiniteMPS.random(4, 2, 4, torch.float64, "cpu",
                            torch.Generator().manual_seed(6))

@@ -196,6 +196,17 @@ def test_plot_data_and_rendering():
     assert len(tm.transferplot(it, 4).lines) == 1
     ax = tplot.entanglement_plot_sectors(sit)
     assert len(ax.lines) == len(tplot.entanglement_plot_data_sectors(sit))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tplot.entanglement_plot_data_sectors(type("SU2ReducedState", (),
-                                                  {})())
+    # item 11's SU(2) family is ported: a reduced state gives its
+    # multiplet spectrum as the JAX package's does
+    from mpskit_tpu.symmetry import su2 as jsu2, su2_reduced as jr
+    from mpskit_tpu_torch.interop import su2_reduced_state_from_numpy
+    rj = jr.SU2ReducedState.random(jax.random.PRNGKey(2),
+                                   jsu2.SU2Bond(((1, 2), (3, 1))), 2)
+    rt = su2_reduced_state_from_numpy(
+        *((x.keys, [np.asarray(v) for v in x.vals])
+          for x in (rj.AL, rj.AR, rj.AC, rj.C)), 2, device="cpu")
+    dj = jplot.entanglement_plot_data_sectors(rj)
+    dt = tplot.entanglement_plot_data_sectors(rt)
+    assert sorted(dt) == sorted(dj) == [1, 3]
+    for k in dj:
+        _close(dt[k], np.asarray(dj[k]), 1e-10)

@@ -365,8 +365,9 @@ def test_finite_excited_matches_ed_and_jax():
 
 
 def test_unported_branches_raise():
-    """The reduced-MPO branch raises naming item 11. The charge sectors and
-    symmetric states (item 11's abelian part) are ported: sector= on a
+    """Item 11 is ported: a stand-in that only carries the ReducedMPO name
+    raises TypeError, as does a real ReducedMPO with FiniteExcited. The
+    charge sectors and symmetric states are ported too: sector= on a
     plain state raises TypeError as in the JAX package, and stand-ins that
     only carry the symmetric names are no states."""
     H = transverse_field_ising(g=1.5)
@@ -384,9 +385,15 @@ def test_unported_branches_raise():
             excitations(H, QuasiparticleAnsatz(), sym)
         with pytest.raises(TypeError):
             excitations(H, QuasiparticleAnsatz(), 0.0, sym)
+    # item 11's reduced-MPO branch is ported
+    # (tests/test_torch_su2_reduced_qp.py): a stand-in is no operator, and
+    # the reduced path takes QuasiparticleAnsatz only, as in the JAX package
     reduced = type("ReducedMPO", (), {})()
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError):
         excitations(reduced, QuasiparticleAnsatz(), 0.0, psi)
+    from mpskit_tpu_torch.symmetry import heisenberg_reduced
+    with pytest.raises(TypeError, match="QuasiparticleAnsatz"):
+        excitations(heisenberg_reduced(2), FiniteExcited(), 0.0, psi)
     # a transfer MPO goes to the boundary excitations, which take
     # QuasiparticleAnsatz only
     O = DenseMPO.from_array(np.ones((1, 1, 2, 2)))
