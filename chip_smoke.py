@@ -42,9 +42,9 @@ Phases, in order; any failure exits non-zero:
      L=6 D=27 against exact diagonalization (729 states), each to 1e-8;
   9. the two-site slice at full width: DMRG2(krylovdim=10,
      eig_maxrestarts=2, trscheme=truncdim(256)) on spin-1 Heisenberg L=32
-     D=256 float32 for 4 sweeps through find_groundstate, with per-sweep
+     D=256 float32 for 3 sweeps through find_groundstate, with per-sweep
      times, host syncs and largest discarded weight, and the metric
-     dmrg2_sweep_time_heisenberg_s1_L32_D256_float32 (mean of sweeps 2-4)
+     dmrg2_sweep_time_heisenberg_s1_L32_D256_float32 (mean of sweeps 2-3)
      in a JSON line; then one more sweep timed plainly, one split by
      synchronizations into eigensolves, SVD splits, environment pushes and
      the rest, one under torch.profiler for the device's busy time and idle
@@ -89,7 +89,7 @@ Phases, in order; any failure exits non-zero:
      default find_groundstate(InfiniteMPS, H) (VUMPS at 1e-9, then
      GradientGrassmann at 1e-10) on TFIM g=1.5 D=12 within 1e-10 of the
      JAX energy density, with its iterations, evaluations, eps and time;
-     finite GradientGrassmann on TFIM g=4 L=10 D=6 (150 iterations)
+     finite GradientGrassmann on TFIM g=4 L=10 D=6 (60 iterations)
      under the quality gate's variance 1e-2; excitations_finite on TFIM
      g=10 L=16 D=32 within 1e-2 relative of 2(g-1); FiniteExcited at L=8
      against ED to 1e-6; excitations_infinite at p = 0, pi within 5e-3 of
@@ -115,8 +115,8 @@ Phases, in order; any failure exits non-zero:
      launches;
  15. the statmech boundaries in complex128 (`[boundary-f64]` lines), at
      the JAX tests' configurations on the critical classical Ising MPO:
-     VUMPS_Boundary D=13 (tol 1e-9, 40 iterations) and an MPOHamiltonian
-     row D=13 (40 iterations) within 1e-3 of the reference's 2.5337, VOMPS D=8 within 2e-3,
+     VUMPS_Boundary D=13 (tol 1e-9, 25 iterations) and an MPOHamiltonian
+     row D=13 (25 iterations) within 1e-3 of the reference's 2.5337, VOMPS D=8 within 2e-3,
      GradientGrassmann D=10 after a VOMPS(tol=1e-3) warm-up within 1e-3
      (and not below the warm-up's eigenvalue), two MPOMultiline rows D=8
      (|lambda_0 lambda_1|^(1/2) within 5e-3); the six-vertex boundary
@@ -128,7 +128,7 @@ Phases, in order; any failure exits non-zero:
  16. the boundary slice at full width (`[boundary]` lines):
      leading_boundary of the critical classical Ising MPO from a seeded
      random D=256 complex128 state with VUMPS_Boundary(tol=1e-9,
-     maxiter=15) (krylovdim 30, environment tolerance 1e-12, gauge
+     maxiter=10) (krylovdim 30, environment tolerance 1e-12, gauge
      tolerance 1e-13): eps and lambda every 5 iterations, the metric
      boundary_vumps_iteration_time_ising_D256_complex128 (the mean of
      iterations 2..N) with host syncs per iteration in a JSON line, the
@@ -150,7 +150,7 @@ Phases, in order; any failure exits non-zero:
      9..23 (1e-8), a two-site string <c^dag c + h.c.>, the fermion parity
      as a finite DenseMPO (+1) and variance (below 1e-8); (b) the
      half-filled Hubbard chain U=4 on a two-site cell (d=4, w=6) at
-     D=256 by VUMPS(tol=1e-8, maxiter=60) from a random state (its
+     D=256 by VUMPS(tol=1e-8, maxiter=40) from a random state (its
      iterations 2.. as
      vumps_iteration_time_hubbard_U4_D256_float64 in a JSON line), the
      cell-mean energy within 1e-4 of Lieb-Wu's -2.5737293678984039, <n>
@@ -181,10 +181,10 @@ Phases, in order; any failure exits non-zero:
      1e-5 relative of the from_infinite window's, grow(1, 1) then
      shrink(1, 1) with a deviation below 1e-5 and <X> unchanged to 1e-6;
      (b) the co-evolving window TDVP of H(t) = H_zz + (1.5 - 0.6 t) H_x
-     as Window(LazySum) in complex64 from (a)'s state, 6 steps of dt=0.05
+     as Window(LazySum) in complex64 from (a)'s state, 4 steps of dt=0.05
      with TDVP(expalg_m=20), window_tdvp_step_time_tfim_ramp_L32_D256_
      complex64 (steps 2..) in a JSON line with syncs per step, the
-     frozen-boundary run's error after 5 steps printed beside; gates: the
+     frozen-boundary run's error after 3 steps printed beside; gates: the
      centre <X> and <ZZ> within 1e-4 of the infinite TDVP of the same sum at every
      step, the norm within 1e-5 of 1, no K1 launch; (c) propagator in
      complex128: the ground-state pole at L=32 D=64 within 1e-9 relative
@@ -234,14 +234,14 @@ Phases, in order; any failure exits non-zero:
      1e-6 of the exact free-fermion one; the three sector-1
      quasiparticles above the vacuum of the XX chain at h=4 (L=32 D=64)
      within 1e-7 of h - 2 cos(n pi / 33); (c) from an N=16 ground state at
-     D=256 (float32 DMRG, made complex64) the quench to XXZ(delta=0.5), 6
+     D=256 (float32 DMRG, made complex64) the quench to XXZ(delta=0.5), 3
      TDVP(expalg_m=20) steps of dt=0.05 symmetric and the same steps
      unsymmetric, u1_tdvp_step_time_xxz_L32_D256_complex64 (steps 2..) in
      a JSON line; gates: the basis order (charge (0, 1) is 1 - 2 Sz), the
      energy (relative) and every <n_i> of the two runs within 1e-5 at
      every step, <N> conserved to 1e-5, no entry outside the mask, no K1
      launch; (d) the sector VUMPS of the XXX chain (two-site cell, charges
-     +-1) at D=128 float64, VUMPS(tol=1e-8, maxiter=100): the density
+     +-1) at D=128 float64, VUMPS(tol=1e-8, maxiter=50): the density
      within 1e-4 of 1 - 4 ln 2, C outside its mask below 1e-12,
      transfer_spectrum(sector=0) |lambda_0| = 1 to 1e-10, sector 2 below
      1; the Z_2 ground state of the parity TFIM g=1.5 at D=48 and its
@@ -281,6 +281,48 @@ Phases, in order; any failure exits non-zero:
      tests/test_su2.py's bond (dense D=22): 5e-4 of 4 E0, exact
      multiplet degeneracies; (f) (a)-(d) at dense D=8 / L=8 on the card
      and the CPU, agreeing to 1e-10; K1 launches 0 (launches_su2).
+ 22. the category / anyon family in float64 / complex128 ([anyon] lines;
+     starts from seeded generators): (a) the golden chain (Fibonacci tau
+     anyons) as an AnyonicFiniteMPS at L=32 D=256 by the sector-resolved
+     find_groundstate_anyonic_dmrg2 with DMRG2(krylovdim=10,
+     eig_maxrestarts=2), 3 sweeps, per-sweep times and host syncs,
+     anyonic_dmrg2_sweep_time_golden_L32_D256_float64 (sweeps 2..) in a
+     JSON line, one more sweep plainly and under torch.profiler (idle
+     share); gates: the state re-gauged as a plain FiniteMPS has the
+     anyonic energy under the penalty-pinned anyon_chain_finite to 1e-12
+     relative, one dense find_groundstate_dmrg2 sweep at truncdim(256)
+     from it lowers the energy by at most 1e-8 relative, no entry off the
+     masks, Schmidt norms 1 to 1e-10; the quantum entropy profile and the
+     middle bond's sector split printed; (b) the Ising sigma chain at L=32
+     D=128, the same settings (anyonic_dmrg2_sweep_time_sigma_L32_D128_
+     float64), 1e-9 relative of the free-fermion energy of the mapped
+     open critical TFIM on 16 spins; (c) masked VUMPS
+     (find_groundstate_anyonic) of the sigma chain, two-site cell, D=64,
+     seed (1,), VUMPS(tol=1e-8), anyonic_vumps_iteration_time_sigma_D64_
+     float64, gates: at most 1e-2 above -1/2 - 1/pi and not below it
+     (masked one-site VUMPS stalls at start-dependent fixed points above
+     it, PERF.md), mask leak 0, both bond
+     entropies finite; (d) find_groundstate_anyonic_idmrg2 of the golden
+     chain, two-site cell, D=64, DMRG2(tol=1e-8),
+     anyonic_idmrg2_iteration_time_golden_D64_float64, against plain
+     VUMPS at D=128 (20 iterations) after 30 IDMRG2 passes: e_anyon >=
+     e_dense - 1e-8, the gap
+     within 1e-2 (3.49e-3 on the CPU), both sectors live on every
+     bond; (e) the
+     hard-hexagon boundary (hard_hexagon_fibonacci) as a complex128
+     FibonacciInfiniteMPS, one-site cell, leading_boundary_fibonacci with
+     VUMPS_Boundary(tol=1e-8) at D = 16 (6 iterations) and 64 (12
+     iterations; the path stalls near eps 1e-3, PERF.md)
+     grown by `grow`,
+     fibonacci_boundary_iteration_time_hard_hexagon_D64_complex128;
+     gates: lambda per site within 5e-3 of 0.8802, mask leak below 1e-10,
+     anyonic_entropy = anyonic_entropy_state to 1e-9; the central charge
+     from S against log xi printed; (f) the Rep(A4) chain of anyon 3
+     (vertex multiplicity 2) by sector DMRG2 at full rank, complex128
+     (tests/test_multiplicity_chain.py:102-138): the multiplicity path ED
+     to 1e-9; (g) leg (a) at L=8 D=16 on the card and on the CPU from one
+     start: energies to 1e-12 relative, labels equal; K1 launches 0
+     (launches_anyon).
 Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -316,7 +358,7 @@ VUMPS_ARGS = dict(m=10, restarts=2, gauge_tol=1e-8, env_tol_static=1e-8,
                   inner_tol=1e-6)
 VUMPS_WARMUP, VUMPS_BATCH, VUMPS_REPS = 8, 32, 3
 # the two-site configuration of BASELINE.json:8 at its full width
-DMRG2_L, DMRG2_D, DMRG2_SWEEPS = 32, 256, 4
+DMRG2_L, DMRG2_D, DMRG2_SWEEPS = 32, 256, 3
 E_TOL_IDMRG = 1e-6     # absolute, float64 energy density at D=12
 # the quench of scripts/tpu_complex_check.py:47-49 at its full width
 TDVP_L, TDVP_D, TDVP_G0, TDVP_G1 = 32, 256, 1.5, 0.5
@@ -345,7 +387,7 @@ HALDANE_D, HALDANE_GAP, HALDANE_TOL = 48, 0.41047925, 1e-4
 # (BASELINE.md:18)
 ONSAGER = float(np.sqrt(2) * np.exp(2 * 0.915965594177219015 / np.pi))
 BOUNDARY_ORACLE, BOUNDARY_ORACLE_TOL = 2.5337, 1e-3
-BOUNDARY_D, BOUNDARY_ITERS, BOUNDARY_REL_TOL = 256, 15, 1e-7
+BOUNDARY_D, BOUNDARY_ITERS, BOUNDARY_REL_TOL = 256, 10, 1e-7
 BOUNDARY_CARD_TOL = 1e-10   # one iteration, card against CPU, complex128
 # phase 17, leg (a): free fermions (the JW chain of models/fermions.py,
 # w=4) at the finite cell's width, against the exact free-fermion state
@@ -358,7 +400,7 @@ FF_TOL_ENTROPY, FF_TOL_CORR, FF_TOL_VAR = 1e-6, 1e-8, 1e-8
 # -4 int_0^inf J0(w) J1(w) / (w (1 + exp(w U / 2))) dw = -0.5737293678984039
 # (scipy quad, error 2e-9), minus mu <n> = 2
 HUB_U, HUB_E_LIEB_WU, HUB_E_TOL = 4.0, -2.5737293678984039, 1e-4
-HUB_D, HUB_VUMPS_ITERS = 256, 60
+HUB_D, HUB_VUMPS_ITERS = 256, 40
 HUB_DENSITY_TOL, HUB_NN_TOL, HUB_VAR_TOL = 1e-6, 1e-6, 1e-3
 HUB_RANGE_N, HUB_RANGE_TOL, HUB_CORR_J = 32, 1e-8, 200
 HUB_CARD_TOL = 1e-10    # relative, card against CPU
@@ -377,9 +419,9 @@ WIN_L, WIN_D, WIN_G, WIN_SWEEPS, WIN_TOL = 32, 256, 1.5, 12, 1e-5
 WIN_VUMPS_ITERS = 60
 # leg (b): the co-evolving window TDVP of the field ramp H(t) = H_zz +
 # (1.5 - 0.6 t) H_x in complex64 against the infinite TDVP of the same sum
-RAMP_STEPS, RAMP_DT, RAMP_M, RAMP_TOL, RAMP_NORM_TOL = 6, 0.05, 20, 1e-4, 1e-5
+RAMP_STEPS, RAMP_DT, RAMP_M, RAMP_TOL, RAMP_NORM_TOL = 4, 0.05, 20, 1e-4, 1e-5
 # the frozen-boundary run beside it (printed only) goes half as far
-FROZEN_STEPS = 5
+FROZEN_STEPS = 3
 # leg (c): dynamical DMRG in complex128, the ground-state pole at L=32 D=64
 # and a random state at L=10 D=32 against the dense solve
 DD_L, DD_D, DD_POLE_TOL = 32, 64, 1e-9
@@ -405,7 +447,7 @@ U1_D2, U1_DMRG2_SWEEPS, U1_GAP_TOL, U1_SPEC_TOL, U1_S_TOL = 128, 4, 1e-8, \
     1e-12, 1e-6
 U1_QP_D, U1_QP_H, U1_QP_TOL = 64, 4.0, 1e-7
 # leg (c): symmetric TDVP of the quench XX -> XXZ(0.5) in complex64
-U1_TDVP_D, U1_TDVP_STEPS, U1_TDVP_DT, U1_TDVP_TOL = 256, 6, 0.05, 1e-5
+U1_TDVP_D, U1_TDVP_STEPS, U1_TDVP_DT, U1_TDVP_TOL = 256, 3, 0.05, 1e-5
 # leg (d): sector VUMPS of the XXX chain (two-site cell, charges +-1) and
 # the Z_2 gap of the parity TFIM
 U1_INF_D, U1_INF_TOL, Z2_D, Z2_G, Z2_GAP_TOL = 128, 1e-4, 48, 1.5, 1e-6
@@ -431,6 +473,35 @@ SU2_TDVP_E_TOL, SU2_TDVP_NORM_TOL = 1e-6, 1e-10
 SU2_DENSE_BOND, SU2_DENSE_E_TOL = ((1, 4), (3, 2), (5, 1)), 5e-4
 # leg (f): card against CPU at small sizes
 SU2_SMALL_BOND, SU2_SMALL_L, SU2_CARD_TOL = ((1, 2), (3, 1)), 8, 1e-10
+# phase 22: the category / anyon family. Legs (a)-(b): sector-resolved
+# DMRG2 of the golden chain at phase 9's two-site width (D=256) and of the
+# sigma chain at D=128, L=32, 3 sweeps each
+ANY_L, ANY_GOLD_D, ANY_SIGMA_D, ANY_SWEEPS = 32, 256, 128, 3
+ANY_EMBED_TOL, ANY_DENSE_SWEEP_TOL, ANY_NORM_TOL = 1e-12, 1e-8, 1e-10
+ANY_SIGMA_TOL = 1e-9
+# leg (c): masked VUMPS of the sigma chain; -1/2 - 1/pi per anyon is half
+# the critical TFIM's -1 - 2/pi per spin. Masked one-site VUMPS (the JAX
+# package's algorithm) converges to start-dependent fixed points 2e-4 to
+# 5e-3 above it at D=12-64 (CPU runs; PERF.md, ROADMAP F7), so the
+# gate is that band and the variational side, not 1e-6
+ANY_VUMPS_D, ANY_VUMPS_TOL = 64, 1e-2
+E_SIGMA_CHAIN = -0.5 - 1.0 / np.pi
+# leg (d): IDMRG2 of the golden chain at D=64 against plain VUMPS at D=128;
+# a CPU run's gap was 3.49e-3 (the masked class is flat-weaker than
+# a dense bond), the JAX slow test allows 1.5e-2 at D=16 against 24
+ANY_IDMRG_D, ANY_IDMRG_DENSE_D, ANY_IDMRG_GAP = 64, 128, 1e-2
+ANY_IDMRG_DENSE_ITERS = 20
+# leg (e): the hard-hexagon boundary (tests/test_fibonacci.py:96-131)
+HH_DS, HH_LAMBDA, HH_LAMBDA_TOL, HH_LEAK_TOL, HH_S_TOL = \
+    (16, 64), 0.8802, 5e-3, 1e-10, 1e-9
+# the masked one-site boundary stalls at eps ~1e-3 (150 iterations per
+# width of 16, 24, 32, 48, 64 took 441 s on the H100, eps 1e-4 to
+# 1e-2, lambda 2.8e-3 to 3.7e-3 from 0.8802 at every width; each width
+# also pays ten VOMPS warm-up steps): the ladder is cut to 16 -> 64,
+# the first width gets HH_GROW_ITERS iterations, the last one HH_MAXITER
+HH_MAXITER, HH_GROW_ITERS = 12, 6
+# legs (f)-(g)
+ANY_A4_TOL, ANY_CARD_L, ANY_CARD_D, ANY_CARD_TOL = 1e-9, 8, 16, 1e-12
 
 
 def tfim_open_chain_e0(L: int, g: float) -> float:
@@ -1698,7 +1769,7 @@ def phase_qp_f64():
     t0 = time.perf_counter()
     with _grassmann_observed(finite=True) as fgg:
         fpsi, _, feps = find_groundstate(fpsi, Hg, GradientGrassmann(
-            tol=1e-6, maxiter=150, verbosity=0))
+            tol=1e-6, maxiter=60, verbosity=0))
     v = _mps_vector(fpsi)
     Hm = Hg.to_matrix(L)
     var = float(np.linalg.norm(Hm @ v) ** 2 - np.vdot(v, Hm @ v).real ** 2)
@@ -1966,8 +2037,8 @@ def phase_boundary_f64():
 
     t0 = time.perf_counter()
     psi, envs, eps = leading_boundary(rand(1, 13), O,
-                                      VUMPS_Boundary(tol=1e-9, maxiter=40))
-    _boundary_gate(f"VUMPS_Boundary D=13 tol 1e-9, 40 iterations (eps "
+                                      VUMPS_Boundary(tol=1e-9, maxiter=25))
+    _boundary_gate(f"VUMPS_Boundary D=13 tol 1e-9, 25 iterations (eps "
                    f"{eps:.1e}, "
                    f"{time.perf_counter() - t0:.1f} s)",
                    expectation_value(psi, O, envs=envs), ref, tol)
@@ -2002,7 +2073,7 @@ def phase_boundary_f64():
     W[0, :w, :w], W[0, w:, w:] = T, 0.5 * T
     t0 = time.perf_counter()
     psi, _, eps = leading_boundary(rand(1, 13), mpo_from_numpy(W),
-                                   VUMPS_Boundary(tol=1e-9, maxiter=40))
+                                   VUMPS_Boundary(tol=1e-9, maxiter=25))
     _boundary_gate(f"MPOHamiltonian row D=13 (eps {eps:.1e}, "
                    f"{time.perf_counter() - t0:.1f} s)",
                    expectation_value(psi, O), ref, tol)
@@ -3525,7 +3596,7 @@ def _u1_infinite():
     spsi = SymmetricInfiniteMPS.random(2, (1, -1), U1_INF_D, torch.float64,
                                        None, "cuda", gen)
     t0 = time.perf_counter()
-    spsi, envs, eps = find_groundstate(spsi, H, VUMPS(tol=1e-8, maxiter=100,
+    spsi, envs, eps = find_groundstate(spsi, H, VUMPS(tol=1e-8, maxiter=50,
                                                       verbosity=0))
     e = float(envs.e_density)
     e_ex = 1 - 4 * np.log(2)
@@ -4085,6 +4156,406 @@ def phase_su2(E64):
     return launches
 
 
+@contextlib.contextmanager
+def _anyon_marks(module, name):
+    """Records (time, host syncs) at every call of `module.name` (the
+    per-sweep or per-iteration step of an anyonic solver, looked up when
+    the solver runs) and once at exit. Yields the list it fills."""
+    import torch
+    from mpskit_tpu_torch.utils import sync
+
+    inner = getattr(module, name)
+    marks = []
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), sync.count))
+        return inner(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        yield marks
+    finally:
+        setattr(module, name, inner)
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), sync.count))
+
+
+def _anyon_leak(spsi) -> float:
+    """Largest |entry| of a finite anyonic state off its site masks."""
+    import torch
+
+    m = torch.as_tensor(spsi.masks, device=spsi.state.device)
+    p = spsi.state
+    return max(float((p.ALs * ~m).abs().max()),
+               float((p.ARs * ~m).abs().max()),
+               float((p.AC * ~m[0]).abs().max()))
+
+
+def _sigma_free_fermion(L: int) -> float:
+    """Ground energy of the sigma chain of L anyons (vacuum left): the open
+    critical TFIM on m = L/2 spins with m-1 X and m-1 ZZ terms,
+    H = -sum_k [(1 + X_k)/2 + (1 + Z_k Z_k+1)/2] (tests/test_category.py:
+    105-128; Z of the last spin is conserved), a Majorana chain of 2m-1
+    sites with hoppings 1/2."""
+    m = L // 2
+    n = 2 * m - 1
+    A = np.zeros((n, n))
+    for j in range(n - 1):
+        A[j, j + 1], A[j + 1, j] = 1.0, -1.0
+    ev = np.linalg.eigvalsh(1j * A)
+    return -(m - 1) - 0.5 * float(np.sum(ev[ev > 0]))
+
+
+def _cell_mean(energies) -> float:
+    """The real mean over the unit cell of per-site energies (a device
+    tensor)."""
+    return float(energies.real.mean())
+
+
+def _anyon_dmrg2(tag, cat, H, D, seed, metric):
+    """An AnyonicFiniteMPS of anyon 1 at ANY_L, D from a seeded start,
+    ANY_SWEEPS sweeps of the sector-resolved DMRG2 (each timed, with its
+    host syncs), the metric (sweeps 2..) in a JSON line. Returns (state,
+    envs, energy, the DMRG2 settings)."""
+    import torch
+    from mpskit_tpu_torch import DMRG2, expectation_value
+    from mpskit_tpu_torch.symmetry import (
+        AnyonicFiniteMPS, find_groundstate_anyonic_dmrg2,
+    )
+    from mpskit_tpu_torch.symmetry import anyonic_finite as af
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    spsi = AnyonicFiniteMPS.random(cat, 1, D, ANY_L, device="cuda",
+                                   generator=gen)
+    alg = DMRG2(tol=1e-14, maxiter=ANY_SWEEPS, krylovdim=10,
+                eig_maxrestarts=2)
+    with _anyon_marks(af, "_bond_solver") as marks:
+        spsi, envs, _ = find_groundstate_anyonic_dmrg2(spsi, H, alg)
+    times, syncs = _intervals(marks)
+    E = float(np.real(expectation_value(spsi.state, H, envs=envs)))
+    for k, (t, c) in enumerate(zip(times, syncs)):
+        log(f"[anyon] {tag}: sweep {k + 1}: {t:.2f} s, {c} host syncs")
+    later = list(zip(times, syncs))[1:]
+    log(json.dumps({
+        "metric": metric, "value": sum(t for t, _ in later) / len(later),
+        "unit": "s", "host_syncs_per_sweep":
+        sum(c for _, c in later) / len(later), "sweeps": len(times),
+        "energy": E}))
+    return spsi, envs, E, alg
+
+
+def _anyon_golden():
+    """Leg (a): the golden chain at L=32 D=256 by sector-resolved DMRG2,
+    held against a dense two-site sweep of its plain embedding."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG2, FiniteMPS, expectation_value, find_groundstate, truncdim,
+    )
+    from mpskit_tpu_torch.models import anyon_chain_finite, golden_chain
+    from mpskit_tpu_torch.symmetry import (
+        fibonacci_category, find_groundstate_anyonic_dmrg2,
+    )
+
+    cat, H = fibonacci_category(), golden_chain()
+    spsi, envs, E, alg = _anyon_dmrg2(
+        "a", cat, H, ANY_GOLD_D, 101,
+        "anyonic_dmrg2_sweep_time_golden_L32_D256_float64")
+    one = DMRG2(tol=1e-14, maxiter=1, krylovdim=10, eig_maxrestarts=2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    find_groundstate_anyonic_dmrg2(spsi, H, one)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    busy, n_dev, by_name = _device_busy_ms(
+        lambda: find_groundstate_anyonic_dmrg2(spsi, H, one))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"[anyon] a: one more sweep: {plain:.1f} ms plainly; under "
+        "torch.profiler " + (
+            f"{n_dev} kernels and copies, busy {busy:.1f} ms, idle share "
+            f"{1 - busy / plain:.1%}; the largest: " + "; ".join(
+                f"{name[:60]} {ms:.1f} ms x{n}" for name, (ms, n) in top)
+            if busy else "no device time in the trace"))
+    p = spsi.state
+    dense = FiniteMPS.from_tensors(torch.cat([p.AC[None], p.ARs[1:]]))
+    Hpin, pins = anyon_chain_finite(cat, 1, ANY_L)
+    E_pin = float(np.real(expectation_value(dense, Hpin)))
+    log(f"[anyon] a: E {E:.14f}; the plain embedding under "
+        f"anyon_chain_finite (pins {pins}) {E_pin:.14f}")
+    _gate("anyon", "a: embedding energy under the pinned MPO, relative",
+          abs(E_pin - E) / abs(E), ANY_EMBED_TOL)
+    t0 = time.perf_counter()
+    psi_d, _, _ = find_groundstate(dense, Hpin, DMRG2(
+        tol=1e-14, maxiter=1, krylovdim=10, eig_maxrestarts=2,
+        trscheme=truncdim(ANY_GOLD_D)))
+    E_d = float(np.real(expectation_value(psi_d, Hpin)))
+    log(f"[anyon] a: one dense DMRG2 sweep at truncdim({ANY_GOLD_D}) "
+        f"({time.perf_counter() - t0:.2f} s): E {E_d:.14f}")
+    _gate("anyon", "a: energy lowered by the dense sweep, relative",
+          max(E - E_d, 0.0) / abs(E), ANY_DENSE_SWEEP_TOL)
+    _gate("anyon", "a: largest entry off the masks", _anyon_leak(spsi), 0.0)
+    _gate("anyon", "a: largest |sum S^2 - 1| over the bonds",
+          max(abs(float(np.sum(spsi._bond_S(b) ** 2)) - 1.0)
+              for b in range(1, ANY_L)), ANY_NORM_TOL)
+    prof = [spsi.entropy(b) for b in range(1, ANY_L)]
+    log("[anyon] a: quantum entropy profile, bonds 1..31: "
+        + " ".join(f"{s:.4f}" for s in prof))
+    mid = spsi.schmidt(ANY_L // 2)
+    lab = spsi.labels[ANY_L // 2]
+    log("[anyon] a: bond 16 sector split: " + ", ".join(
+        f"sector {a}: {int(np.sum(lab == a))} slots, quantum weight "
+        f"{cat.qdim[a] * float(np.sum(w)):.6f}" for a, w in sorted(
+            mid.items())))
+    if not all(np.isfinite(prof)):
+        raise RuntimeError("leg (a): a non-finite entropy")
+    return E
+
+
+def _anyon_sigma():
+    """Leg (b): the sigma chain at L=32 D=128 against the free-fermion
+    energy of the mapped TFIM."""
+    from mpskit_tpu_torch.models import ising_anyon_chain
+    from mpskit_tpu_torch.symmetry import ising_category
+
+    spsi, _, E, _ = _anyon_dmrg2(
+        "b", ising_category(), ising_anyon_chain(), ANY_SIGMA_D, 103,
+        "anyonic_dmrg2_sweep_time_sigma_L32_D128_float64")
+    ref = _sigma_free_fermion(ANY_L)
+    log(f"[anyon] b: E {E:.14f}, free fermions {ref:.14f}")
+    _gate("anyon", "b: energy against the free-fermion TFIM, relative",
+          abs(E - ref) / abs(ref), ANY_SIGMA_TOL)
+    _gate("anyon", "b: largest entry off the masks", _anyon_leak(spsi), 0.0)
+
+
+def _anyon_vumps():
+    """Leg (c): masked VUMPS of the sigma chain on a two-site cell at
+    D=64."""
+    import torch
+    from mpskit_tpu_torch import VUMPS, expectation_value
+    from mpskit_tpu_torch.algorithms import vumps as vm
+    from mpskit_tpu_torch.models import ising_anyon_chain
+    from mpskit_tpu_torch.symmetry import (
+        AnyonicInfiniteMPS, find_groundstate_anyonic, ising_category,
+    )
+
+    H = ising_anyon_chain(period=2)
+    gen = torch.Generator(device="cuda").manual_seed(105)
+    spsi = AnyonicInfiniteMPS.random(ising_category(), 1, ANY_VUMPS_D, 2,
+                                     seed=(1,), device="cuda", generator=gen)
+    with _anyon_marks(vm, "_vumps_iteration_impl") as marks:
+        spsi, envs, eps = find_groundstate_anyonic(
+            spsi, H, VUMPS(tol=1e-8, maxiter=200, verbosity=0))
+    times, syncs = _intervals(marks[:-1])
+    e = _cell_mean(expectation_value(spsi.state, H, envs=envs))
+    log(json.dumps({
+        "metric": "anyonic_vumps_iteration_time_sigma_D64_float64",
+        "value": sum(times) / len(times), "unit": "s",
+        "host_syncs_per_iteration": sum(syncs) / len(syncs),
+        "iterations": len(times) + 1, "eps": eps, "energy": e}))
+    _gate("anyon", "c: e - (-1/2 - 1/pi)", e - E_SIGMA_CHAIN, ANY_VUMPS_TOL)
+    _gate("anyon", "c: -1/2 - 1/pi - 1e-8 - e (<= 0)",
+          E_SIGMA_CHAIN - 1e-8 - e, 0.0)
+    A_mask, _ = spsi.masks
+    _gate("anyon", "c: mask leak", float(
+        (spsi.state.AL * ~torch.as_tensor(A_mask, device="cuda"))
+        .abs().max()), 0.0)
+    S = (spsi.entropy(0), spsi.entropy(1))
+    log(f"[anyon] c: bond entropies {S[0]:.6f} ({{1, psi}}), "
+        f"{S[1]:.6f} (sigma), eps {eps:.3e}")
+    if not all(np.isfinite(S)):
+        raise RuntimeError("leg (c): a non-finite bond entropy")
+
+
+def _anyon_idmrg2():
+    """Leg (d): sector-resolved IDMRG2 of the golden chain at D=64 against
+    plain VUMPS at D=128."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG2, VUMPS, InfiniteMPS, expectation_value, find_groundstate,
+    )
+    from mpskit_tpu_torch.models import golden_chain
+    from mpskit_tpu_torch.symmetry import (
+        AnyonicInfiniteMPS, fibonacci_category,
+        find_groundstate_anyonic_idmrg2,
+    )
+    from mpskit_tpu_torch.symmetry import anyonic_finite as af
+
+    H = golden_chain(period=2)
+    gen = torch.Generator(device="cuda").manual_seed(107)
+    spsi = AnyonicInfiniteMPS.random(fibonacci_category(), 1, ANY_IDMRG_D,
+                                     2, device="cuda", generator=gen)
+    with _anyon_marks(af, "_bond_solver") as marks:
+        spsi, envs, dC = find_groundstate_anyonic_idmrg2(
+            spsi, H, DMRG2(tol=1e-8, maxiter=30, verbosity=0))
+    times, syncs = _intervals(marks)
+    e_any = _cell_mean(expectation_value(spsi.state, H, envs=envs))
+    log(json.dumps({
+        "metric": "anyonic_idmrg2_iteration_time_golden_D64_float64",
+        "value": sum(times[1:]) / len(times[1:]), "unit": "s",
+        "host_syncs_per_iteration": sum(syncs[1:]) / len(syncs[1:]),
+        "iterations": len(times), "dC": dC, "energy": e_any}))
+    psi = InfiniteMPS.random(2, 2, ANY_IDMRG_DENSE_D, torch.float64, "cuda",
+                             torch.Generator(device="cuda").manual_seed(109))
+    t0 = time.perf_counter()
+    psi, envs_d, eps = find_groundstate(psi, H, VUMPS(
+        tol=1e-8, maxiter=ANY_IDMRG_DENSE_ITERS, verbosity=0))
+    e_dense = _cell_mean(expectation_value(psi, H, envs=envs_d))
+    log(f"[anyon] d: e_anyon {e_any:.12f}, dense VUMPS at "
+        f"D={ANY_IDMRG_DENSE_D} {e_dense:.12f} (eps {eps:.2e}, "
+        f"{time.perf_counter() - t0:.1f} s), gap {e_any - e_dense:.3e}")
+    _gate("anyon", "d: e_dense - 1e-8 - e_anyon (<= 0)",
+          e_dense - 1e-8 - e_any, 0.0)
+    _gate("anyon", "d: gap to the dense energy", e_any - e_dense,
+          ANY_IDMRG_GAP)
+    for i, row in enumerate(spsi.labels):
+        if set(row) != {0, 1}:
+            raise RuntimeError(f"leg (d): bond {i} holds sectors {set(row)}")
+
+
+def _anyon_hard_hexagon():
+    """Leg (e): the Fibonacci hard-hexagon boundary at D = 16 .. 64."""
+    import torch
+    from mpskit_tpu_torch.algorithms import statmech as sm
+    from mpskit_tpu_torch.algorithms.statmech import VUMPS_Boundary
+    from mpskit_tpu_torch.algorithms.toolbox import correlation_length
+    from mpskit_tpu_torch.models import hard_hexagon_fibonacci
+    from mpskit_tpu_torch.symmetry import (
+        FibonacciInfiniteMPS, anyonic_entropy, leading_boundary_fibonacci,
+    )
+    from mpskit_tpu_torch.symmetry.fibonacci import anyonic_entropy_state
+
+    O = hard_hexagon_fibonacci()
+    gen = torch.Generator(device="cuda").manual_seed(111)
+    sp = FibonacciInfiniteMPS.random(HH_DS[0], L=1, dtype=torch.complex128,
+                                     device="cuda", generator=gen)
+    rows = []
+    for D in HH_DS:
+        if D != sp.state.D:
+            sp = sp.grow(D, generator=gen)
+        with _anyon_marks(sm, "_boundary_vumps_iteration") as marks:
+            sp, envs, eps = leading_boundary_fibonacci(
+                sp, O, VUMPS_Boundary(
+                    tol=1e-8, verbosity=0, maxiter=(
+                        HH_MAXITER if D == HH_DS[-1] else HH_GROW_ITERS)))
+        times, syncs = _intervals(marks)
+        lam = abs(complex(envs.lambda_cell))
+        S = anyonic_entropy(sp)
+        S_state = anyonic_entropy_state(sp.state)[0]
+        xi = correlation_length(sp.state)
+        A_mask, _ = sp.masks
+        leak = float((sp.state.AL * ~torch.as_tensor(
+            A_mask, device="cuda")).abs().max())
+        rows.append((D, lam, S, xi, times, syncs, eps))
+        log(f"[anyon] e: D={D}: {len(times)} iterations, "
+            f"{sum(times):.2f} s, eps {eps:.2e}, lambda {lam:.10f}, "
+            f"S {S:.6f}, xi {xi:.3f}, leak {leak:.1e}")
+        _gate("anyon", f"e: D={D} |lambda - 0.8802|", abs(lam - HH_LAMBDA),
+              HH_LAMBDA_TOL)
+        _gate("anyon", f"e: D={D} mask leak", leak, HH_LEAK_TOL)
+        _gate("anyon", f"e: D={D} |anyonic_entropy - anyonic_entropy_state|",
+              abs(S - S_state), HH_S_TOL)
+    D, lam, S, xi, times, syncs, eps = rows[-1]
+    log(json.dumps({
+        "metric": "fibonacci_boundary_iteration_time_hard_hexagon_D64_"
+                  "complex128",
+        "value": sum(times[1:]) / len(times[1:]), "unit": "s",
+        "host_syncs_per_iteration": sum(syncs[1:]) / len(syncs[1:]),
+        "iterations": len(times), "eps": eps, "lambda": lam}))
+    logxi = np.log([r[3] for r in rows])
+    Ss = np.array([r[2] for r in rows])
+    c = 6 * float(np.polyfit(logxi, Ss, 1)[0])
+    log(f"[anyon] e: central charge from S = (c/6) log xi over D = "
+        f"{', '.join(str(r[0]) for r in rows)}: c = {c:.4f} (4/5 expected; "
+        "printed only, PERF.md)")
+
+
+def _anyon_rep_a4():
+    """Leg (f): the Rep(A4) chain of anyon 3 at full rank, complex128,
+    against the multiplicity path ED."""
+    import torch
+    from mpskit_tpu_torch import DMRG2, expectation_value
+    from mpskit_tpu_torch.symmetry import (
+        AnyonicFiniteMPS, anyon_bond_labels_finite,
+        find_groundstate_anyonic_dmrg2, rep_a4,
+    )
+
+    cat, x, L = rep_a4(), 3, 5
+    D = max(int(np.sum(lab >= 0))
+            for lab in anyon_bond_labels_finite(cat, x, 256, L))
+    H = cat.chain_mpo(x, 0, period=1, dtype=np.complex128)
+    spsi = AnyonicFiniteMPS.random(
+        cat, x, D, L, dtype=torch.complex128, device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(113))
+    Hp, paths = cat.chain_hamiltonian_dense(x, 0, L, left=0,
+                                            right=int(spsi.labels[-1][0]))
+    e_ref = float(np.linalg.eigvalsh(Hp)[0])
+    spsi, envs, _ = find_groundstate_anyonic_dmrg2(
+        spsi, H, DMRG2(tol=1e-11, maxiter=40, verbosity=0))
+    E = float(np.real(expectation_value(spsi.state, H, envs=envs)))
+    log(f"[anyon] f: Rep(A4), D={D}, {len(paths)} paths: E {E:.14f}, path "
+        f"ED {e_ref:.14f}")
+    _gate("anyon", "f: |E - path ED|", abs(E - e_ref), ANY_A4_TOL)
+    _gate("anyon", "f: largest entry off the masks", _anyon_leak(spsi), 0.0)
+
+
+def _anyon_card_vs_cpu():
+    """Leg (g): leg (a) at L=8 D=16 on the card and on the CPU from one
+    start (drawn on the CPU)."""
+    import dataclasses
+
+    import torch
+    from mpskit_tpu_torch import DMRG2, expectation_value
+    from mpskit_tpu_torch.models import golden_chain
+    from mpskit_tpu_torch.states.finitemps import FiniteMPS
+    from mpskit_tpu_torch.symmetry import (
+        AnyonicFiniteMPS, fibonacci_category, find_groundstate_anyonic_dmrg2,
+    )
+
+    H = golden_chain()
+    start = AnyonicFiniteMPS.random(
+        fibonacci_category(), 1, ANY_CARD_D, ANY_CARD_L, device="cpu",
+        generator=torch.Generator().manual_seed(115))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = start.state
+        sp = dataclasses.replace(start, state=FiniteMPS(
+            p.ALs.to(dev), p.ARs.to(dev), p.AC.to(dev), p.center))
+        sp, envs, _ = find_groundstate_anyonic_dmrg2(
+            sp, H, DMRG2(tol=1e-13, maxiter=12, krylovdim=10,
+                         eig_maxrestarts=2))
+        out[dev] = (float(np.real(expectation_value(sp.state, H,
+                                                    envs=envs))), sp.labels)
+    (Ec, lc), (Eh, lh) = out["cuda"], out["cpu"]
+    _gate("anyon", "g: card against CPU, energy, relative",
+          abs(Ec - Eh) / abs(Eh), ANY_CARD_TOL)
+    if not all(np.array_equal(a, b) for a, b in zip(lc, lh)):
+        raise RuntimeError("leg (g): the card's labels differ from the CPU's")
+
+
+def phase_anyon():
+    """Phase 22: the category / anyon family. Returns K1's launches in it
+    (gated 0: every anyonic path runs float64 or complex128 with exact
+    matvecs)."""
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+
+    k1.launches = 0
+    legs = {}
+    for name, fn in (("a", _anyon_golden), ("b", _anyon_sigma),
+                     ("c", _anyon_vumps), ("d", _anyon_idmrg2),
+                     ("e", _anyon_hard_hexagon), ("f", _anyon_rep_a4),
+                     ("g", _anyon_card_vs_cpu)):
+        t0 = time.perf_counter()
+        fn()
+        legs[name] = time.perf_counter() - t0
+    launches = k1.launches
+    log("[anyon] seconds per leg: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in legs.items()) + f"; K1 launches in this "
+        f"phase: {launches}")
+    if launches != 0:
+        raise RuntimeError("phase 22 launched K1: no anyonic path runs it")
+    return launches
+
+
 def phase_measure():
     """Phase 17: the measurement surface on three ground states with exact
     oracles, and K1 at leg (a)'s shape (w=4) and on its general path."""
@@ -4143,6 +4614,7 @@ def main():
     launches_rsdmrg = timed(phase_rsdmrg)
     launches_u1 = timed(phase_symmetric)
     launches_su2 = timed(phase_su2, E64_dmrg2)
+    launches_anyon = timed(phase_anyon)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -4173,7 +4645,8 @@ def main():
         "launches_rsdmrg_warmup": launches_rsdmrg["warmup"],
         "launches_rsdmrg_rounds": launches_rsdmrg["rounds"],
         "launches_rsdmrg_segments_cold": launches_rsdmrg["segments_cold"],
-        "launches_u1": launches_u1, "launches_su2": launches_su2}]}))
+        "launches_u1": launches_u1, "launches_su2": launches_su2,
+        "launches_anyon": launches_anyon}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -50,9 +50,13 @@ and the abelian (U(1) / Z_n) symmetric states of `symmetry/`: bond charge
 labels and masks, SymmetricFiniteMPS and SymmetricInfiniteMPS, the sector
 DMRG, DMRG2 and VUMPS, sector entanglement spectra, sector-aware bond
 expansion, and the symmetric branches of timestep, excitations (sector=),
-transfer_spectrum (sector=) and the checkpoints. The package imports
-torch and never jax; the JAX package stays the reference the tests hold
-it to."""
+transfer_spectrum (sector=) and the checkpoints. Slice 12 adds the SU(2)
+family; slice 13 the category / anyon family of `symmetry/` (fusion
+categories with and without multiplicities, anyonic chain MPOs, the
+Fibonacci hard-hexagon boundary, masked anyonic VUMPS and the
+sector-resolved anyonic DMRG2 / IDMRG2) with the sector-masked boundary
+and environment paths. The package imports torch and never jax; the JAX
+package stays the reference the tests hold it to."""
 
 from . import config, models
 from .config import Defaults

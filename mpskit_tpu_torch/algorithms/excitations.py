@@ -18,9 +18,8 @@ the momenta, every solve from the same seeded start vector unless a
 generator is given. A transfer MPO (DenseMPO) goes to
 `excitations_statmech.excitations_boundary`. A charge sector (`sector=`)
 restricts the search on a SymmetricFiniteMPS (in B-space) or a
-SymmetricInfiniteMPS (in X-space); the reduced-MPO branch comes with a
-later slice and raises NotImplementedError naming queue-1 item 11
-(ROADMAP.md).
+SymmetricInfiniteMPS (in X-space); a ReducedMPO goes to the SU(2)
+reduced quasiparticles (`symmetry/su2_reduced_qp.py`).
 """
 
 from __future__ import annotations

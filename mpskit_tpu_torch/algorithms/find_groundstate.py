@@ -9,6 +9,8 @@ from ..operators.lazysum import LazySum, MultipliedOperator
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from ..states.windowmps import WindowMPS
+from ..symmetry.anyonic import AnyonicInfiniteMPS
+from ..symmetry.anyonic_finite import AnyonicFiniteMPS
 from ..symmetry.charges import (
     SymmetricFiniteMPS, SymmetricInfiniteMPS, find_groundstate_symmetric,
     find_groundstate_symmetric_dmrg2, find_groundstate_symmetric_infinite,
@@ -17,6 +19,7 @@ from ..symmetry.su2_finite import (
     SU2DMRG, SU2DMRG2, SU2FiniteMPS, find_groundstate_su2_finite_dmrg,
     find_groundstate_su2_finite_dmrg2,
 )
+from ..symmetry.fibonacci import FibonacciInfiniteMPS
 from ..symmetry.su2_reduced import (
     ReducedMPO, SU2ReducedState, find_groundstate_su2_reduced,
 )
@@ -32,6 +35,7 @@ from .rsdmrg import RealSpaceParallelDMRG, find_groundstate_rsdmrg
 from .unionalg import ChainedAlg
 from .vumps import VUMPS, find_groundstate_vumps
 
+_ANYONIC = (AnyonicFiniteMPS, AnyonicInfiniteMPS, FibonacciInfiniteMPS)
 _FINITE = ((DMRG, find_groundstate_dmrg), (DMRG2, find_groundstate_dmrg2),
            (GradientGrassmann, find_groundstate_grassmann_finite),
            (RealSpaceParallelDMRG, find_groundstate_rsdmrg))
@@ -59,8 +63,8 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     `eval_at(0.0)`. An SU2ReducedState runs the reduced VUMPS and returns
     (state, e_density, eps); an SU2FiniteMPS runs the reduced DMRG2 /
     DMRG (the generic DMRG and DMRG2 translate) and returns (psi, E, eps);
-    both need a ReducedMPO. The anyonic states come with a later slice and
-    raise NotImplementedError naming queue-1 item 11b (ROADMAP.md)."""
+    both need a ReducedMPO. As in the JAX package there is no anyonic
+    branch: an anyonic state raises TypeError naming its own solvers."""
     if isinstance(H, LazySum):
         # a time-independent sum is materialized eagerly: the summed FSM is
         # one wider MPO, the fastest form for the matvecs
@@ -86,10 +90,14 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
             raise TypeError(f"{type(alg).__name__} does not run on a "
                             "SymmetricInfiniteMPS; it takes VUMPS")
         return find_groundstate_symmetric_infinite(psi, H, alg)
+    elif isinstance(psi, _ANYONIC):
+        raise TypeError(
+            f"find_groundstate has no branch for a {type(psi).__name__}: "
+            "run find_groundstate_anyonic (masked VUMPS), "
+            "find_groundstate_anyonic_dmrg2, find_groundstate_anyonic_idmrg2 "
+            "or leading_boundary_fibonacci (mpskit_tpu_torch.symmetry)")
     elif not isinstance(psi, (FiniteMPS, InfiniteMPS)):
-        raise NotImplementedError(
-            f"find_groundstate for {type(psi).__name__} is not ported yet: "
-            "anyonic states come with queue-1 item 11b (ROADMAP.md)")
+        raise TypeError(f"find_groundstate of a {type(psi).__name__}")
     if isinstance(alg, ChainedAlg):
         envs_out, eps = envs, None
         for stage in alg:

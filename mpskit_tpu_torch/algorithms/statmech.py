@@ -9,8 +9,11 @@ iteration as one jit-compiled function with the per-site solves vmapped
 over the unit cell; here an iteration is a sequence of host-driven steps:
 the channel environments (two Arnoldi fixed points), a host loop over the
 sites for the AC and C solves (each site's output written to its seat),
-one batched regauge and the gauge fix `InfiniteMPS.from_AL`. The sector
-masks of the anyonic boundaries come with queue-1 item 11 (ROADMAP.md).
+one batched regauge and the gauge fix `InfiniteMPS.from_AL`. The anyonic
+boundaries (symmetry/fibonacci.py) pass static sector masks: the local
+solves then run in the masked Krylov space, the environments in theirs,
+and the new AR is built locally from (C_{i-1}, AC_i) in place of the gauge
+fix.
 """
 
 from __future__ import annotations
@@ -21,21 +24,16 @@ import torch
 
 from ..config import Defaults, VERBOSE_ITER, matmul_precision
 from ..environments.infinite_mpo import mpo_environments, stack_O
-from ..linalg.arnoldi import dominant_eigs
+from ..linalg.arnoldi import dominant_eigs, dominant_eigs_real
 from ..linalg.fixedpoint import transfer_uniqueness_warning
 from ..operators.multiline import MPOMultiline
-from ..states.gauging import regauge_ACC
+from ..states.gauging import regauge_ACC, regauge_CAC
 from ..states.infinitemps import InfiniteMPS
 from ..states.multiline import MPSMultiline
 from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog, logger
 from ..utils.sync import to_host
 from .derivatives import ac_apply, c_apply
-
-_MASKED = ("sector-masked boundary iterations (A_mask=, C_mask=, "
-           "env_mask=) serve the anyonic boundaries and come with queue-1 "
-           "item 11 (ROADMAP.md)")
-
 
 @dataclasses.dataclass(frozen=True)
 class VUMPS_Boundary:
@@ -57,50 +55,79 @@ class VOMPS:
     verbosity: int = Defaults.verbosity
 
 
-def _check_unmasked(*masks):
-    if any(mk is not None for mk in masks):
-        raise NotImplementedError(_MASKED)
+def _mask_as(M, like):
+    """A static mask (boolean array or tensor) as a tensor of `like`'s
+    dtype on its device; None stays None."""
+    if M is None:
+        return None
+    return torch.as_tensor(M, device=like.device).to(like.dtype)
 
 
-def _solve_acs(envs, Os, ACs, m: int, tol: float):
+def _solve_acs(envs, Os, ACs, m: int, tol: float, Am=None, real=False):
     """Dominant eigenvector of each site's AC channel operator, started
-    from the current AC. Returns (ACs', converged flags, residuals)."""
+    from the current AC. With masks Am (L, D, d, D) the operator is
+    Am_i * T(Am_i * x), the Krylov space confined to the sector, and
+    `real` selects the dominant real pair (`dominant_eigs_real`). Returns
+    (ACs', converged flags, residuals)."""
+    solver = dominant_eigs_real if real else dominant_eigs
     out, conv, resid = [], [], []
     for i in range(ACs.shape[0]):
         GL, O, GR = envs.GLs[i], Os[i], envs.GRs[i]
-        res = dominant_eigs(lambda x: ac_apply(GL, O, GR, x), ACs[i], m, 20,
-                            tol)
+        if Am is None:
+            res = solver(lambda x: ac_apply(GL, O, GR, x), ACs[i], m, 20,
+                         tol)
+        else:
+            Mi = Am[i]
+            res = solver(lambda x: Mi * ac_apply(GL, O, GR, Mi * x), ACs[i],
+                         m, 20, tol)
         out.append(res.eigenvector)
         conv.append(res.converged)
         resid.append(res.residual)
     return torch.stack(out), conv, resid
 
 
-def _solve_cs(envs, Cs, m: int, tol: float):
+def _solve_cs(envs, Cs, m: int, tol: float, Cm=None, real=False):
     """The same for each bond's C: bond i uses (GLs[i+1], GRs[i])."""
+    solver = dominant_eigs_real if real else dominant_eigs
     L = Cs.shape[0]
     out, conv, resid = [], [], []
     for i in range(L):
         GL, GR = envs.GLs[(i + 1) % L], envs.GRs[i]
-        res = dominant_eigs(lambda x: c_apply(GL, GR, x), Cs[i], m, 20, tol)
+        if Cm is None:
+            res = solver(lambda x: c_apply(GL, GR, x), Cs[i], m, 20, tol)
+        else:
+            Mi = Cm[i]
+            res = solver(lambda x: Mi * c_apply(GL, GR, Mi * x), Cs[i], m,
+                         20, tol)
         out.append(res.eigenvector)
         conv.append(res.converged)
         resid.append(res.residual)
     return torch.stack(out), conv, resid
 
 
-def _boundary_regauge(ACs, Cs):
-    """AL_i = argmin |AC_i - AL C_i| (batched QRpos) and the convergence
-    measure eps = max_i |AC_i - phase_i AL_i C_i|, the global phase of each
-    site removed (a 0-dim tensor)."""
+def _boundary_regauge(ACs, Cs, Am=None):
+    """AL_i = argmin |AC_i - AL C_i| (batched QRpos, re-masked by Am) and
+    the convergence measure eps = max_i |AC_i - phase_i AL_i C_i|, the
+    global phase of each site removed (a 0-dim tensor)."""
     L = ACs.shape[0]
     ALs = regauge_ACC(ACs, Cs)
+    if Am is not None:
+        ALs = ALs * Am
     ALC = torch.einsum("ilpm,imr->ilpr", ALs, Cs)
     phase = torch.einsum("ilpr,ilpr->i", ALC.conj(), ACs)
     phase = phase / torch.clamp(phase.abs(), min=1e-30)
     eps = torch.linalg.vector_norm(
         (ACs - phase[:, None, None, None] * ALC).reshape(L, -1), dim=1).max()
     return ALs, eps
+
+
+def _masked_state(ALs, ACs, Cs, Am, Cm):
+    """The masked path's new state: AR_i built locally from (C_{i-1},
+    AC_i) by LQpos in place of the gauge fix (whose fixed-point eigensolves
+    rotate the bond basis within near-degenerate sectors, against the
+    static masks), everything re-masked."""
+    ARs = regauge_CAC(torch.roll(Cs, 1, dims=0), ACs)
+    return InfiniteMPS(ALs * Am, ARs * Am, ACs * Am, Cs * Cm)
 
 
 def _normalized(X):
@@ -116,17 +143,30 @@ def _boundary_vumps_iteration(psi: InfiniteMPS, Os, m: int, gauge_tol: float,
     """One boundary VUMPS iteration. Returns (psi', eps 0-dim tensor, GL of
     site 0, GR of site L-1 (the next iteration's environment guesses), diag
     the host triple (# unconverged local solves, worst local residual,
-    environment residual))."""
-    _check_unmasked(A_mask, C_mask, env_mask)
+    environment residual)).
+
+    Sector masks (A_mask (L, D, d, D), C_mask (L, D, D), env_mask (w, D,
+    D); the anyonic boundaries of symmetry/fibonacci.py) confine each
+    Krylov space to its sector: a largest-magnitude solve could otherwise
+    converge onto a spurious mixed-sector vector that masking afterwards
+    destroys. With env_mask the solves select the dominant real pair."""
     L = psi.period
     envs = mpo_environments(psi, Os, tol=env_tol, krylovdim=m,
-                            GL0=GL_guess, GR0=GR_guess)
-    ACs, conv_a, res_a = _solve_acs(envs, Os, psi.AC, m, inner_tol)
-    Cs, conv_c, res_c = _solve_cs(envs, psi.C, m, inner_tol)
+                            GL0=GL_guess, GR0=GR_guess, env_mask=env_mask,
+                            select_real=env_mask is not None)
+    Am, Cm = _mask_as(A_mask, psi.AC), _mask_as(C_mask, psi.C)
+    real = Am is not None and env_mask is not None
+    ACs, conv_a, res_a = _solve_acs(envs, Os, psi.AC, m, inner_tol, Am, real)
+    Cs, conv_c, res_c = _solve_cs(envs, psi.C, m, inner_tol, Cm, real)
     diag = (sum(not c for c in conv_a + conv_c), max(res_a + res_c),
             envs.resid)
-    ALs, eps = _boundary_regauge(ACs, Cs)
-    psi_new = InfiniteMPS.from_AL(ALs, psi.C[L - 1], tol=gauge_tol)
+    if Am is None:
+        ALs, eps = _boundary_regauge(ACs, Cs)
+        psi_new = InfiniteMPS.from_AL(ALs, psi.C[L - 1], tol=gauge_tol)
+    else:
+        ACs, Cs = ACs * Am, Cs * Cm
+        ALs, eps = _boundary_regauge(ACs, Cs, Am)
+        psi_new = _masked_state(ALs, ACs, Cs, Am, Cm)
     return psi_new, eps, envs.GLs[0], envs.GRs[L - 1], diag
 
 
@@ -134,17 +174,26 @@ def _boundary_vomps_iteration(psi: InfiniteMPS, Os, gauge_tol: float,
                               env_tol: float, GL_guess=None, GR_guess=None,
                               A_mask=None, C_mask=None, env_mask=None):
     """One power-method step: a single channel application per site in
-    place of the eigensolves. Returns (psi', eps, GL0, GR_{L-1},
+    place of the eigensolves, with the sector masks of
+    `_boundary_vumps_iteration`. Returns (psi', eps, GL0, GR_{L-1},
     environment residual)."""
-    _check_unmasked(A_mask, C_mask, env_mask)
     L = psi.period
-    envs = mpo_environments(psi, Os, tol=env_tol, GL0=GL_guess, GR0=GR_guess)
+    envs = mpo_environments(psi, Os, tol=env_tol, GL0=GL_guess, GR0=GR_guess,
+                            env_mask=env_mask,
+                            select_real=env_mask is not None)
     ACs = torch.stack([ac_apply(envs.GLs[i], Os[i], envs.GRs[i], psi.AC[i])
                        for i in range(L)])
     Cs = torch.stack([c_apply(envs.GLs[(i + 1) % L], envs.GRs[i], psi.C[i])
                       for i in range(L)])
-    ALs, eps = _boundary_regauge(_normalized(ACs), _normalized(Cs))
-    psi_new = InfiniteMPS.from_AL(ALs, psi.C[L - 1], tol=gauge_tol)
+    Am, Cm = _mask_as(A_mask, psi.AC), _mask_as(C_mask, psi.C)
+    if Am is not None:
+        ACs, Cs = ACs * Am, Cs * Cm
+    ACs, Cs = _normalized(ACs), _normalized(Cs)
+    ALs, eps = _boundary_regauge(ACs, Cs, Am)
+    if Am is None:
+        psi_new = InfiniteMPS.from_AL(ALs, psi.C[L - 1], tol=gauge_tol)
+    else:
+        psi_new = _masked_state(ALs, ACs, Cs, Am, Cm)
     return psi_new, eps, envs.GLs[0], envs.GRs[L - 1], envs.resid
 
 

@@ -5,9 +5,10 @@ unit cell, by restarted Arnoldi, propagated through the cell and
 normalized so that <C | GL . GR | C> = 1 at every bond.
 
 The JAX package scans through the cell; here the cell is a host loop that
-writes each site's environment to its seat. The sector-masked and
-real-selecting variants serve only the anyonic boundaries and come with
-queue-1 item 11 (ROADMAP.md).
+writes each site's environment to its seat. The anyonic boundaries
+(symmetry/fibonacci.py) confine the Arnoldi space to a static sector mask
+of the environments (`env_mask`) and select the dominant real eigenpair
+(`select_real`).
 """
 
 from __future__ import annotations
@@ -17,14 +18,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..linalg.arnoldi import dominant_eigs
+from ..linalg.arnoldi import dominant_eigs, dominant_eigs_real
 from ..states.infinitemps import InfiniteMPS
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
-
-_MASKED = ("sector-masked and real-selecting boundary environments "
-           "(env_mask=, select_real=) serve the anyonic boundaries and come "
-           "with queue-1 item 11 (ROADMAP.md)")
-
 
 @dataclasses.dataclass(frozen=True)
 class InfiniteMPOEnv:
@@ -59,21 +55,27 @@ def stack_O(O, L: int, dtype, device):
                                                           dtype=dtype)
 
 
-def cell_transfer_left(Os, A_ket, A_bra):
-    """v -> v pushed left to right through the cell's MPO channel."""
+def cell_transfer_left(Os, A_ket, A_bra, M=None):
+    """v -> v pushed left to right through the cell's MPO channel; with a
+    (w, D, D) mask M, M * T(M * v)."""
     def mv(v):
+        if M is not None:
+            v = v * M
         for i in range(Os.shape[0]):
             v = transfer_left_mpo(v, Os[i], A_ket[i], A_bra[i])
-        return v
+        return v if M is None else v * M
     return mv
 
 
-def cell_transfer_right(Os, A_ket, A_bra):
-    """v -> v pushed right to left through the cell's MPO channel."""
+def cell_transfer_right(Os, A_ket, A_bra, M=None):
+    """v -> v pushed right to left through the cell's MPO channel; with a
+    (w, D, D) mask M, M * T(M * v)."""
     def mv(v):
+        if M is not None:
+            v = v * M
         for i in range(Os.shape[0] - 1, -1, -1):
             v = transfer_right_mpo(v, Os[i], A_ket[i], A_bra[i])
-        return v
+        return v if M is None else v * M
     return mv
 
 
@@ -84,24 +86,35 @@ def mpo_environments(psi_ket: InfiniteMPS, O, psi_bra: InfiniteMPS = None,
     """Mixed dominant fixed points of the channel transfer operator <bra|
     O |ket> (psi_bra defaults to psi_ket), seeded by GL0 / GR0 (the
     previous fixed points) or by ones + identity. O is a DenseMPO, an FSM
-    MPOHamiltonian row or an already stacked (L, w, w, d, d) tensor."""
-    if env_mask is not None or select_real:
-        raise NotImplementedError(_MASKED)
+    MPOHamiltonian row or an already stacked (L, w, w, d, d) tensor.
+
+    env_mask, a (w, D, D) boolean array or tensor (the static sector
+    alignment (MPO level, bra, ket) of an anyonic boundary), confines the
+    Arnoldi space to the mask, so that a near-degenerate sector rotation
+    cannot replace the aligned fixed point. select_real takes the dominant
+    (near-)real eigenpair (`dominant_eigs_real`) in place of the largest
+    in magnitude, for channels whose spurious complex rotation modes sit
+    above the physical fixed point."""
     if psi_bra is None:
         psi_bra = psi_ket
     L, D = psi_ket.period, psi_ket.D
     dtype, device = psi_ket.dtype, psi_ket.device
     Os = stack_O(O, L, dtype, device)
     w = Os.shape[1]
+    M = (None if env_mask is None
+         else torch.as_tensor(env_mask, device=device).to(dtype))
 
-    def seed():
-        return (torch.ones((w, D, D), dtype=dtype, device=device)
-                + torch.eye(D, dtype=dtype, device=device)[None])
+    def seed(G0):
+        if G0 is None:
+            G0 = (torch.ones((w, D, D), dtype=dtype, device=device)
+                  + torch.eye(D, dtype=dtype, device=device)[None])
+        return G0 if M is None else G0 * M
 
-    resL = dominant_eigs(cell_transfer_left(Os, psi_ket.AL, psi_bra.AL),
-                         seed() if GL0 is None else GL0, krylovdim, 100, tol)
-    resR = dominant_eigs(cell_transfer_right(Os, psi_ket.AR, psi_bra.AR),
-                         seed() if GR0 is None else GR0, krylovdim, 100, tol)
+    solver = dominant_eigs_real if select_real else dominant_eigs
+    resL = solver(cell_transfer_left(Os, psi_ket.AL, psi_bra.AL, M),
+                  seed(GL0), krylovdim, 100, tol)
+    resR = solver(cell_transfer_right(Os, psi_ket.AR, psi_bra.AR, M),
+                  seed(GR0), krylovdim, 100, tol)
 
     # per-site environments through the cell (unnormalized growth; the
     # cell eigenvalue is divided out once around)

@@ -12,6 +12,13 @@ from .states.finitemps import FiniteMPS
 from .states.infinitemps import InfiniteMPS
 from .states.quasiparticle import FiniteQP, LeftGaugedQP
 from .states.windowmps import WindowMPS
+from .symmetry.anyonic import AnyonicInfiniteMPS
+from .symmetry.anyonic_finite import AnyonicFiniteMPS
+from .symmetry.category import BraidedCategory, FusionCategory
+from .symmetry.fibonacci import FibonacciInfiniteMPS
+from .symmetry.multiplicity import (
+    BraidedMultiplicityCategory, MultiplicityCategory,
+)
 from .symmetry.charges import SymmetricFiniteMPS, SymmetricInfiniteMPS
 from .symmetry.su2 import SU2Bond, SU2InfiniteMPS
 from .symmetry.su2_finite import SU2FiniteMPS
@@ -154,3 +161,55 @@ def su2_infinite_mps_from_numpy(AL, AR, AC, C, multiplets, tjp: int,
     return SU2InfiniteMPS(
         infinite_mps_from_numpy(AL, AR, AC, C, device=device),
         SU2Bond(tuple((int(tj), int(m)) for tj, m in multiplets)), int(tjp))
+
+
+def category_from_numpy(name, sectors, qdim, N, F, dual, R=None):
+    """The port's category from a JAX one's arrays (`name`, `sectors`,
+    `qdim`, `N`, `F`, `dual` and, for a braided one, `R`): a
+    FusionCategory for a (n,)*6 F, a MultiplicityCategory for the
+    (n, n, n, n, n, m, m, n, m, m) F of arbitrary multiplicities."""
+    multi = np.ndim(F) == 10
+    args = (str(name), tuple(str(a) for a in sectors),
+            np.array(qdim, copy=True), np.array(N, copy=True),
+            np.array(F, copy=True), tuple(int(a) for a in dual))
+    if R is None:
+        return MultiplicityCategory(*args) if multi else FusionCategory(*args)
+    cls = BraidedMultiplicityCategory if multi else BraidedCategory
+    return cls(*args, np.array(R, copy=True))
+
+
+def _labels(labels):
+    return tuple(tuple(int(x) for x in row) for row in labels)
+
+
+def anyonic_finite_mps_from_numpy(ALs, ARs, AC, center: int, cat, anyon: int,
+                                  labels, schmidt_values=None,
+                                  device="cuda") -> AnyonicFiniteMPS:
+    """AnyonicFiniteMPS from the numpy leaves of a JAX one's state, its
+    category (a port category, e.g. from `category_from_numpy`), anyon,
+    per-bond labels and Schmidt values, on the card unless `device` says
+    otherwise."""
+    return AnyonicFiniteMPS(
+        finite_mps_from_numpy(ALs, ARs, AC, center, device=device), cat,
+        int(anyon), tuple(np.array(lab, dtype=np.int64, copy=True)
+                          for lab in labels),
+        None if schmidt_values is None else tuple(
+            np.array(s, copy=True) for s in schmidt_values))
+
+
+def anyonic_infinite_mps_from_numpy(AL, AR, AC, C, cat, anyon: int, labels,
+                                    device="cuda") -> AnyonicInfiniteMPS:
+    """AnyonicInfiniteMPS from the numpy leaves, category, anyon and (L, D)
+    labels of a JAX one, on the card unless `device` says otherwise."""
+    return AnyonicInfiniteMPS(
+        infinite_mps_from_numpy(AL, AR, AC, C, device=device), cat,
+        int(anyon), _labels(labels))
+
+
+def fibonacci_infinite_mps_from_numpy(AL, AR, AC, C, labels,
+                                      device="cuda") -> FibonacciInfiniteMPS:
+    """FibonacciInfiniteMPS from the numpy leaves and bond labels of a JAX
+    one, on the card unless `device` says otherwise."""
+    return FibonacciInfiniteMPS(
+        infinite_mps_from_numpy(AL, AR, AC, C, device=device),
+        tuple(int(x) for x in labels))

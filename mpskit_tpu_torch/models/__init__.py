@@ -9,5 +9,10 @@ from .hamiltonians import (
 )
 from .spins import pauli, spinmatrices
 from .statmech import (
-    classical_ising, finite_classical_ising, hard_hexagon, sixvertex,
+    classical_ising, finite_classical_ising, hard_hexagon,
+    hard_hexagon_fibonacci, sixvertex,
+)
+from .anyons import (
+    anyon_chain, anyon_chain_finite, golden_chain, ising_anyon_chain,
+    rsos_chain,
 )

@@ -90,3 +90,52 @@ def hard_hexagon(z: float = None, dtype=np.float64) -> DenseMPO:
                         continue
                     O[2 * sp + tp, 2 * s + t, s, t] = z ** s
     return DenseMPO.from_array(O)
+
+
+def hard_hexagon_fibonacci(dtype=np.float64) -> DenseMPO:
+    """The critical hard-hexagon transfer MPO of the reference's
+    Fibonacci-anyon example (MPSKitModels `hard_hexagon()`: the all-ones
+    morphism on tau (x) tau with the vacuum fusion channel zeroed, i.e. the
+    projector P^tau onto the tau channel; used by reference
+    examples/classic2d/1.hard-hexagon/main.jl), expressed exactly in the
+    orthonormal fusion-path (height) basis of symmetry/fibonacci.py.
+
+    Derivation. P^tau = 1 - e/phi where e is the Temperley-Lieb element on
+    tau (x) tau with loop weight phi; in the path basis between contextual
+    heights a_l, a_r the TL matrix elements are
+    e^{(a_l=a_r)}_{x,x'} = sqrt(d_x d_x')/d_{a_l}. Composing one projector
+    per column along the row threads the horizontal tau line between the
+    already-produced upper heights and the pending lower heights, so the
+    MPO bond state at a cut is the height PAIR (y, x) = (upper path, path
+    after the horizontal tau), constrained to x in y (x) tau — three
+    states: (1,tau), (tau,1), (tau,tau). With physical indices p_in = x'
+    (lower height after the site) and p_out = y' (upper height after the
+    site), the site tensor is
+
+        W[(y,x) -> (y',x')] = delta_{x,y'}
+                              - delta_{y,x'} sqrt(d_x d_{y'}) / (phi d_y)
+
+    on fusion-allowed configurations. Validation: the flat ring trace of
+    this MPO reproduces the lattice-gas `hard_hexagon(z_c)` transfer
+    spectrum ratios exactly on small rings (tests/test_fibonacci.py) — the
+    two are the same Baxter partition function at criticality."""
+    phi = (1 + np.sqrt(5)) / 2
+    d = np.array([1.0, phi])
+
+    def ok(a, b):  # b in a (x) tau
+        return not (a == 0 and b == 0)
+
+    pairs = [(y, x) for y in (0, 1) for x in (0, 1) if ok(y, x)]
+    P = len(pairs)
+    W = np.zeros((P, P, 2, 2), dtype)
+    for i, (y, x) in enumerate(pairs):
+        for j, (y2, x2) in enumerate(pairs):
+            if not ok(x, x2) or not ok(y, y2):
+                continue
+            val = 0.0
+            if x == y2:
+                val += 1.0
+            if y == x2:
+                val -= np.sqrt(d[x] * d[y2]) / (phi * d[y])
+            W[i, j, y2, x2] = val
+    return DenseMPO.from_array(W)

@@ -70,8 +70,7 @@ class MPOHamiltonian:
     diag_class: Tuple[int, ...]                 # per level, product over cell
     diag_scalar: Tuple[complex, ...]            # scalar value for DIAG_SCALAR
     # per-site auxiliary abelian charges fused onto the physical legs (set
-    # by add_physical_charge; their consumers come with the symmetric
-    # states, queue-1 item 11)
+    # by add_physical_charge)
     aux_charges: Tuple[int, ...] = ()
 
     @property

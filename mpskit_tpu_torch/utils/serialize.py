@@ -4,12 +4,13 @@ that a checkpoint either package wrote loads in the other: `__type__`
 names the container, `leaf_0`, `leaf_1`, ... hold its tensors in the JAX
 package's pytree order, and the static data sits beside them (`__center__`,
 `__nrows__`, `__momentum__`, `__trivial__`, `__bond_charges__`,
-`__phys_charges__`).
+`__phys_charges__`, `__labels__`, `__anyon__`, `__cat__`).
 
 Covered containers: FiniteMPS, InfiniteMPS, WindowMPS, MPSMultiline,
-LeftGaugedQP, SymmetricFiniteMPS and SymmetricInfiniteMPS. The anyonic
-container comes with queue-1 item 11 (ROADMAP.md). Every iterative
-algorithm's `finalize(iter, psi, H)` hook can call `save_state`.
+LeftGaugedQP, SymmetricFiniteMPS, SymmetricInfiniteMPS and
+AnyonicInfiniteMPS, whose category is rebuilt by name from the built-in
+ones (Fibonacci, Ising, Z_n, su2_k). Every iterative algorithm's
+`finalize(iter, psi, H)` hook can call `save_state`.
 
 A symmetric state's Z_n modulus goes into an extra `__modulus__` key: the
 JAX package writes none and reloads every symmetric state as U(1), which
@@ -26,9 +27,25 @@ from ..states.infinitemps import InfiniteMPS
 from ..states.multiline import MPSMultiline
 from ..states.quasiparticle import LeftGaugedQP
 from ..states.windowmps import WindowMPS
+from ..symmetry.anyonic import AnyonicInfiniteMPS
+from ..symmetry.category import (
+    fibonacci_category, ising_category, su2k_category, zn_category,
+)
 from ..symmetry.charges import SymmetricFiniteMPS, SymmetricInfiniteMPS
 
-_ITEM_11 = ("AnyonicInfiniteMPS",)
+
+def _category_by_name(name: str):
+    """A built-in category from its name, as the JAX package rebuilds it."""
+    if name == "Fibonacci":
+        return fibonacci_category()
+    if name == "Ising":
+        return ising_category()
+    if name.startswith("Z") and name[1:].isdigit():
+        return zn_category(int(name[1:]))
+    if name.startswith("su2_"):
+        return su2k_category(int(name[4:]))
+    raise TypeError(f"cannot reconstruct category {name!r} by name; "
+                    "checkpoint custom categories yourself")
 
 
 def _leaves(psi) -> list:
@@ -45,7 +62,8 @@ def _leaves(psi) -> list:
     if isinstance(psi, LeftGaugedQP):
         return ([psi.Xs, psi.VLs] + _leaves(psi.left_gs)
                 + _leaves(psi.right_gs))
-    if isinstance(psi, (SymmetricFiniteMPS, SymmetricInfiniteMPS)):
+    if isinstance(psi, (SymmetricFiniteMPS, SymmetricInfiniteMPS,
+                        AnyonicInfiniteMPS)):
         return _leaves(psi.state)
     raise TypeError(f"cannot checkpoint a {type(psi).__name__}")
 
@@ -53,10 +71,6 @@ def _leaves(psi) -> list:
 def save_state(path: str, psi) -> None:
     """Save a state container to .npz with its static data."""
     tname = type(psi).__name__
-    if tname in _ITEM_11:
-        raise NotImplementedError(
-            f"save_state of a {tname} comes with the anyonic states of "
-            "queue-1 item 11 (ROADMAP.md)")
     arrays = {"__type__": np.array(tname)}
     arrays.update({f"leaf_{i}": t.detach().cpu().resolve_conj().numpy()
                    for i, t in enumerate(_leaves(psi))})
@@ -77,6 +91,10 @@ def save_state(path: str, psi) -> None:
             arrays["__center__"] = np.array(psi.state.center)
         if psi.modulus is not None:
             arrays["__modulus__"] = np.array(int(psi.modulus))
+    elif isinstance(psi, AnyonicInfiniteMPS):
+        arrays["__labels__"] = np.asarray(psi.labels, int)
+        arrays["__anyon__"] = np.array(psi.anyon)
+        arrays["__cat__"] = np.array(psi.cat.name)
     np.savez(path, **arrays)
 
 
@@ -85,10 +103,6 @@ def load_state(path: str, device="cuda"):
     `device` (the card unless the caller asks for the CPU)."""
     data = np.load(path, allow_pickle=False)
     tname = str(data["__type__"])
-    if tname in _ITEM_11:
-        raise NotImplementedError(
-            f"load_state of a {tname} comes with the anyonic states of "
-            "queue-1 item 11 (ROADMAP.md)")
     n = len([k for k in data.files if k.startswith("leaf_")])
     leaves = [torch.from_numpy(data[f"leaf_{i}"]).to(device)
               for i in range(n)]
@@ -117,4 +131,9 @@ def load_state(path: str, device="cuda"):
             return SymmetricFiniteMPS(
                 FiniteMPS(*leaves[:3], int(data["__center__"])), *sym)
         return SymmetricInfiniteMPS(InfiniteMPS(*leaves), *sym)
+    if tname == "AnyonicInfiniteMPS":
+        return AnyonicInfiniteMPS(
+            InfiniteMPS(*leaves), _category_by_name(str(data["__cat__"])),
+            int(data["__anyon__"]),
+            tuple(tuple(int(x) for x in row) for row in data["__labels__"]))
     raise TypeError(f"unknown state type {tname}")

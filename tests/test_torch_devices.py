@@ -43,7 +43,11 @@ def _no_card():
                                    "window_from_infinite", "purification_mps",
                                    "thermal_state", "propagator",
                                    "load_state", "symmetric_finite_random",
-                                   "symmetric_infinite_random"])
+                                   "symmetric_infinite_random",
+                                   "anyonic_finite_random",
+                                   "anyonic_infinite_random",
+                                   "fibonacci_random",
+                                   "anyonic_infinite_from_numpy"])
 def test_entry_points_default_to_the_card(entry, tmp_path):
     _no_card()
     gen = torch.Generator().manual_seed(0)
@@ -112,6 +116,31 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
             from mpskit_tpu_torch import SymmetricInfiniteMPS
 
             SymmetricInfiniteMPS.random(2, (1, -1), D)
+        elif entry == "anyonic_finite_random":
+            from mpskit_tpu_torch.symmetry import (
+                AnyonicFiniteMPS, fibonacci_category,
+            )
+
+            AnyonicFiniteMPS.random(fibonacci_category(), 1, D, L)
+        elif entry == "anyonic_infinite_random":
+            from mpskit_tpu_torch.symmetry import (
+                AnyonicInfiniteMPS, ising_category,
+            )
+
+            AnyonicInfiniteMPS.random(ising_category(), 1, D, 2, seed=(1,))
+        elif entry == "fibonacci_random":
+            from mpskit_tpu_torch.symmetry import FibonacciInfiniteMPS
+
+            FibonacciInfiniteMPS.random(D, L=1)
+        elif entry == "anyonic_infinite_from_numpy":
+            from mpskit_tpu_torch.interop import (
+                anyonic_infinite_mps_from_numpy,
+            )
+            from mpskit_tpu_torch.symmetry import fibonacci_category
+
+            anyonic_infinite_mps_from_numpy(
+                *_infinite_arrays(), fibonacci_category(), 1,
+                ((0, 1, 1, 1),))
         else:
             As = _arrays()[0]
             finite_qp_from_numpy(As[:, :, :, :2].sum(1), As, As, As,

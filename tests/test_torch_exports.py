@@ -68,41 +68,41 @@ def test_function_names_shadow_their_modules(name):
         assert hasattr(mod, "finite_environments")
 
 
-# names of the JAX package's symmetry/__init__.py that the port does not
-# have yet: the category / anyon family (ROADMAP.md, queue-1 item 11b)
-WAITING_SYMMETRY = {
-    "FibonacciInfiniteMPS", "leading_boundary_fibonacci", "anyonic_entropy",
-    "fibonacci_bond_labels", "FusionCategory", "BraidedCategory",
-    "fibonacci_category", "ising_category", "zn_category",
-    "fibonacci_braided", "ising_braided", "zn_braided", "su2k_category",
-    "su2k_braided", "bond_labels", "chain_masks", "chain_bond_labels",
-    "quantum_schmidt", "quantum_entropy", "AnyonicInfiniteMPS",
-    "find_groundstate_anyonic", "AnyonicFiniteMPS",
-    "find_groundstate_anyonic_dmrg2", "find_groundstate_anyonic_idmrg2",
-    "anyon_bond_labels_finite", "anyon_masks_finite", "anyon_theta_mask",
-    "anyon_split", "MultiplicityCategory", "BraidedMultiplicityCategory",
-    "lift_braided", "rep_category", "rep_s3", "rep_a4",
-}
+def _jax_names(*parts):
+    """The names a JAX package `__init__.py` imports, read with `ast`."""
+    src = (Path(__file__).resolve().parents[1].joinpath(
+        "mpskit_tpu", *parts, "__init__.py")).read_text()
+    return {a.asname or a.name for node in ast.parse(src).body
+            if isinstance(node, ast.ImportFrom) for a in node.names}
 
 
 def test_symmetry_exports_match_jax():
     """Every name of the JAX package's symmetry/__init__.py is in the
-    port's `symmetry` package (the SU(2) family among them), except the
-    category / anyon names still waiting for item 11b."""
+    port's `symmetry` package: the SU(2) family and the category / anyon
+    family among them."""
     import mpskit_tpu_torch.symmetry as tsym
 
-    src = (Path(__file__).resolve().parents[1] / "mpskit_tpu" / "symmetry"
-           / "__init__.py").read_text()
-    names = {a.asname or a.name for node in ast.parse(src).body
-             if isinstance(node, ast.ImportFrom) for a in node.names}
-    assert WAITING_SYMMETRY <= names
-    missing = sorted(n for n in names - WAITING_SYMMETRY
-                     if not hasattr(tsym, n))
+    names = _jax_names("symmetry")
+    missing = sorted(n for n in names if not hasattr(tsym, n))
     assert not missing, missing
-    assert not any(hasattr(tsym, n) for n in WAITING_SYMMETRY)
     for n in ("SU2ReducedState", "SU2FiniteMPS", "ReducedMPO",
-              "excitations_su2_reduced", "SU2TDVP", "energy_reduced"):
+              "excitations_su2_reduced", "SU2TDVP", "energy_reduced",
+              "FusionCategory", "AnyonicFiniteMPS", "anyon_split",
+              "leading_boundary_fibonacci", "rep_a4"):
         assert n in names and hasattr(tsym, n)
+
+
+def test_models_exports_match_jax():
+    """Every name of the JAX package's models/__init__.py is in the port's
+    `models` package, the anyonic chains and the Fibonacci hard-hexagon
+    MPO among them."""
+    import mpskit_tpu_torch.models as tmod
+
+    names = _jax_names("models")
+    assert {"golden_chain", "anyon_chain_finite",
+            "hard_hexagon_fibonacci"} <= names
+    missing = sorted(n for n in names if not hasattr(tmod, n))
+    assert not missing, missing
 
 
 def _su2_inputs():

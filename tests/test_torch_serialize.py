@@ -3,7 +3,7 @@ package on the CPU: a save / load round trip of every ported container
 (FiniteMPS, InfiniteMPS, WindowMPS, MPSMultiline, LeftGaugedQP), a
 checkpoint that the JAX package wrote loaded by the port and the reverse,
 bit for bit, the symmetric containers (their modulus kept), the anyonic
-container's NotImplementedError, and PeriodicArray's indexing."""
+container (its category rebuilt by name), and PeriodicArray's indexing."""
 
 import dataclasses
 
@@ -142,8 +142,10 @@ def _symmetric_state(name, modulus):
                                   "SymmetricInfiniteMPS",
                                   "AnyonicInfiniteMPS"])
 def test_symmetric_containers_name_item_11(name, tmp_path):
-    """The anyonic container raises naming item 11. The abelian symmetric
-    containers are ported: a Z_2 state (modulus 2, which the JAX package's
+    """The anyonic container round-trips in both packages' layout: a JAX
+    AnyonicInfiniteMPS checkpoint loads in the port with its labels,
+    anyon and category (rebuilt by name), and the port's loads in the JAX
+    package, bit for bit. The abelian symmetric containers are ported: a Z_2 state (modulus 2, which the JAX package's
     layout drops) and a U(1) state round-trip with their labels, modulus
     and masks, bit for bit; a stand-in is no container."""
     if name != "AnyonicInfiniteMPS":
@@ -168,12 +170,25 @@ def test_symmetric_containers_name_item_11(name, tmp_path):
         with pytest.raises(TypeError):
             save_state(str(tmp_path / "x.npz"), type(name, (), {})())
         return
-    with pytest.raises(NotImplementedError, match="item 11"):
-        save_state(str(tmp_path / "x.npz"), type(name, (), {})())
+    from mpskit_tpu.symmetry import AnyonicInfiniteMPS as JAnyonic
+    from mpskit_tpu.symmetry import ising_category as jising
+
+    jpsi = JAnyonic.random(jax.random.PRNGKey(4), jising(), 1, D=6, L=2,
+                           seed=(1,))
     path = str(tmp_path / "y.npz")
-    np.savez(path, __type__=np.array(name))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_state(path, device="cpu")
+    jser.save_state(path, jpsi)
+    back = load_state(path, device="cpu")
+    assert type(back).__name__ == name and back.anyon == 1
+    assert back.labels == jpsi.labels and back.cat.name == "Ising"
+    np.testing.assert_array_equal(back.cat.F, jpsi.cat.F)
+    _equal(_torch_leaves(back), _jax_leaves(jpsi.state))
+    for a, b in zip(back.masks, jpsi.masks):
+        np.testing.assert_array_equal(a, b)
+    path2 = str(tmp_path / "x.npz")
+    save_state(path2, back)
+    again = jser.load_state(path2)
+    assert again.labels == jpsi.labels and again.cat.name == "Ising"
+    _equal(_jax_leaves(again.state), _jax_leaves(jpsi.state))
     with pytest.raises(TypeError):
         save_state(str(tmp_path / "z.npz"), object())
 

@@ -292,9 +292,18 @@ def test_boundary_iterations_match_jax(jax_state, jax_converged_ritz):
     ft, gt, _, _ = tsm._boundary_value_and_gradient(pt, Ost, 1e-12)
     assert abs(float(ft) - float(fj)) <= 1e-10
     np.testing.assert_allclose(_np(gt), np.asarray(gj), atol=1e-10)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsm._boundary_vumps_iteration(pt, Ost, 30, 1e-13, 1e-12,
-                                      A_mask=torch.ones(1))
+    # the masked branch (the anyonic boundaries' path; AR built locally
+    # from (C_{i-1}, AC_i)) with masks that admit everything
+    Am, Cm = np.ones(pt.AC.shape, bool), np.ones(pt.C.shape, bool)
+    mj = jsm._boundary_vumps_iteration(pj, Osj, 30, 1e-13, 1e-12, 1e-4,
+                                       A_mask=jnp.asarray(Am),
+                                       C_mask=jnp.asarray(Cm))
+    mt = tsm._boundary_vumps_iteration(pt, Ost, 30, 1e-13, 1e-12, 1e-4,
+                                       A_mask=torch.as_tensor(Am),
+                                       C_mask=torch.as_tensor(Cm))
+    assert abs(float(mt[1]) - float(mj[1])) <= 1e-10
+    for a, b in zip((mt[0].AR, mt[0].C), (mj[0].AR, mj[0].C)):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=1e-10)
 
 
 def test_grassmann_boundary_matches_jax(jax_state, jax_converged_ritz):
