@@ -190,7 +190,7 @@ Phases, in order; any failure exits non-zero:
      complex128: the ground-state pole at L=32 D=64 within 1e-9 relative
      of 1/(0.5 + 0.3i), NaiveInvert (1e-8) and Jeckelmann (1e-6) at L=10
      D=32 against np.linalg.solve, card against CPU 1e-10; (d)
-     thermal_state at L=32 beta=1 dbeta=0.025 Dmax=128 (g=1.2) within
+     thermal_state at L=32 beta=1 dbeta=0.05 Dmax=128 (g=1.2) within
      5e-3 relative of the free-fermion Gibbs energy, at L=8 Dmax=24 card
      against CPU 1e-10; (e) save_state / load_state of (a)'s window and
      infinite state, bit for bit on the card;
@@ -323,6 +323,23 @@ Phases, in order; any failure exits non-zero:
      to 1e-9; (g) leg (a) at L=8 D=16 on the card and on the CPU from one
      start: energies to 1e-12 relative, labels equal; K1 launches 0
      (launches_anyon).
+ 23. the device mesh ([mesh] lines): make_mesh(bond=1) starts a one-rank
+     NCCL group (one card holds one rank; the collectives are issued and
+     counted all the same). (a) phase 5's run (TFIM g=1.5, L=32, D=512,
+     float32, krylovdim 10, 2 restarts, cheap_galerkin, seed 2) through
+     find_groundstate, unsharded and then on shard_finite_mps(psi, mesh),
+     MESH_SWEEPS sweeps each, per-sweep times, host syncs and collectives,
+     mesh_dmrg_sweep_time_tfim_L32_D512_float32 (sweeps 2..) in a JSON
+     line beside the unsharded sweep's time; gates: 1e-5 relative of the
+     closed form, 1e-6 relative of the unsharded run, K1 launches
+     (launches_mesh) and collectives > 0, the state and environments
+     DTensors in the input's placements; (b) from phase 7's last state,
+     MESH_VUMPS_ITERS VUMPS iterations unsharded and bond-sharded,
+     mesh_vumps_iteration_time_tfim_D256_float32; gates: 1e-5 of the
+     exact density, 1e-7 of the unsharded iterations; (c) phase 19 (a)'s
+     RS-DMRG for MESH_RS_ROUNDS rounds unsharded and with
+     mesh=make_mesh(site=1): the energies to 1e-6 relative, K1 in the
+     warmup, the segments gathered by collectives.
 Each phase's seconds are printed after it ([time] lines).
 The last two lines are a JSON object describing each kernel and
 {"ok": true, "device": {...}}.
@@ -429,12 +446,17 @@ DD_DENSE_L, DD_DENSE_D, DD_Z = 10, 32, 0.7 + 0.4j
 DD_NAIVE_TOL, DD_JECK_TOL, DD_CARD_TOL = 1e-8, 1e-6, 1e-10
 # leg (d): the thermal purification at g=1.2 against the free-fermion Gibbs
 # energy (the JAX test's 5e-3), and card against CPU at L=8 Dmax=24
-TH_L, TH_G, TH_BETA, TH_DBETA, TH_DMAX, TH_TOL = 32, 1.2, 1.0, 0.025, 128, 5e-3
+TH_L, TH_G, TH_BETA, TH_DBETA, TH_DMAX, TH_TOL = 32, 1.2, 1.0, 0.05, 128, 5e-3
 TH_CARD_L, TH_CARD_DMAX, TH_CARD_TOL = 8, 24, 1e-10
 # phase 19: segment-parallel DMRG of the TFIM g=1.5 at the finite cell's
 # width (L=32, D=512, float32), its two-site form in float64 at D=64, the
 # parameter scan at the infinite cell's width (D=256, float32)
 RS_L, RS_D, RS_G, RS_NSEG, RS_ROUNDS = 32, 512, 1.5, 4, 10
+MESH_SWEEPS = 4          # phase 23 (a): sweeps of each run
+MESH_VUMPS_ITERS = 6     # phase 23 (b): iterations of each run
+MESH_RS_ROUNDS = 2       # phase 23 (c): rounds of each run
+MESH_SAME_TOL = 1e-6     # relative, sharded against unsharded (a), (c)
+MESH_VUMPS_SAME_TOL = 1e-7  # absolute, energy density, (b)
 RS2_D, RS2_TOL = 64, 1e-8
 SCAN_GS, SCAN_D, SCAN_ITERS, SCAN_TOL = (1.2, 1.5, 2.0, 3.0), 256, 60, 1e-5
 COMPAT_TOL32, PLOT_CARD_TOL = 1e-5, 1e-10
@@ -1058,6 +1080,7 @@ def phase_vumps_slice():
         raise RuntimeError("float32 VUMPS energy misses the exact density")
     if launches != 0:
         raise RuntimeError("VUMPS launched K1: its site solves must be exact")
+    return psi_end, env_end
 
 
 def phase_dmrg2_f64():
@@ -4556,6 +4579,323 @@ def phase_anyon():
     return launches
 
 
+def _sweep_marks():
+    """A finalize hook that records (time, host syncs, collectives) after
+    every sweep or iteration, and the list it fills."""
+    import torch
+    from mpskit_tpu_torch.parallel import split
+    from mpskit_tpu_torch.utils import sync
+
+    marks = []
+
+    def mark(it=None, psi=None, H=None):
+        torch.cuda.synchronize()
+        marks.append((time.perf_counter(), sync.count, split.collectives))
+
+    return mark, marks
+
+
+def _mark_intervals(marks):
+    """Per-interval seconds, host syncs and collectives of a mark list."""
+    return [tuple(b[j] - a[j] for j in range(3))
+            for a, b in zip(marks, marks[1:])]
+
+
+def _later_mean(rows, j):
+    later = rows[1:] or rows
+    return sum(r[j] for r in later) / len(later)
+
+
+def _placed(out, like):
+    """Every tensor field of `out` is a DTensor in `like`'s placements."""
+    from torch.distributed.tensor import DTensor
+
+    return all(isinstance(getattr(out, f), DTensor) and tuple(
+        getattr(out, f).placements) == tuple(getattr(like, f).placements)
+        for f in like.__dataclass_fields__
+        if isinstance(getattr(like, f), DTensor))
+
+
+def _collective_costs(mesh, shape):
+    """Per call: the host time to issue one collective of the bond axis
+    (and a same-size device copy, for scale) on a float32 tensor of
+    `shape`, over 200 calls with no synchronization, and its stream time
+    in CUDA events."""
+    import torch
+    import torch.distributed as dist
+
+    group = mesh.get_group("bond")
+    x = torch.randn(shape, device="cuda")
+    out = torch.empty_like(x)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x, group=group),
+        "all_gather": lambda: dist.all_gather_into_tensor(out, x,
+                                                          group=group),
+        "reduce_scatter": lambda: dist.reduce_scatter_tensor(out, x,
+                                                             group=group),
+        "copy": lambda: out.copy_(x)}
+    costs = {}
+    for name, fn in calls.items():
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        n = 200
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n * 1e3
+        torch.cuda.synchronize()
+        costs[name] = {"host_ms": host, "stream_ms": cuda_time_ms(fn, n)}
+    return costs
+
+
+def _mesh_sweep_idle(mesh, H, psi_u, psi_m):
+    """One more sweep (inner tol 1e-6) from each run's result, unsharded
+    and on the mesh: wall time, then device busy time under
+    torch.profiler; returns {name: (wall ms, busy ms or None)}."""
+    import torch
+    from mpskit_tpu_torch.algorithms import dmrg
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.environments.finite import (
+        compute_right_envs, right_boundary, stack_W,
+    )
+    from mpskit_tpu_torch.parallel import sharded
+    from mpskit_tpu_torch.parallel.split import BondSplit
+    from mpskit_tpu_torch.states.finitemps import support_mask
+
+    L, d, D = psi_u.length, psi_u.physicaldim, psi_u.D
+    Ws = stack_W(H, L, torch.float32, "cuda")
+    masks = torch.as_tensor(support_mask(L, d, D), device="cuda")
+    sp = BondSplit(mesh, D)
+    out = {}
+    with matmul_precision():
+        GRs = compute_right_envs(psi_u.ARs, Ws, right_boundary(
+            Ws.shape[1], D, torch.float32, "cuda"))
+        ALs, ARs, AC = sharded._finite_locals(psi_m, sp, mesh)
+        GRs_m = sharded.right_envs(sp, ARs, Ws)
+        sweeps = {
+            "unsharded": lambda: dmrg._dmrg_sweep_impl(
+                psi_u.ALs.clone(), psi_u.ARs.clone(), psi_u.AC.clone(), Ws,
+                GRs.clone(), 1e-6, 10, 2, masks=masks, cheap_galerkin=True),
+            "mesh": lambda: sharded.dmrg_sweep(
+                sp, ALs.clone(), ARs.clone(), AC.clone(), Ws, GRs_m.clone(),
+                1e-6, 10, 2, masks=masks, cheap_galerkin=True)}
+        for name, fn in sweeps.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            out[name] = (wall, _device_busy_ms(fn)[0])
+    return out
+
+
+def _mesh_dmrg(mesh):
+    """Leg (a): phase 5's run (TFIM g=1.5, L=32, D=512, float32,
+    krylovdim 10, 2 restarts, cheap_galerkin, seed 2) unsharded and then
+    bond-sharded over the one-rank mesh, MESH_SWEEPS sweeps each."""
+    import torch
+    from mpskit_tpu_torch import (
+        DMRG, FiniteMPS, expectation_value, find_groundstate,
+        transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.parallel import shard_finite_mps, split
+
+    L, d, D, g = 32, 2, 512, 1.5
+    H = transverse_field_ising_lattice(g=g)
+    e0 = tfim_open_chain_e0(L, g)
+    runs = {}
+    for name in ("unsharded", "mesh"):
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        psi = FiniteMPS.random(L, d, D, torch.float32, "cuda", gen)
+        if name == "mesh":
+            psi = shard_finite_mps(psi, mesh)
+        mark, marks = _sweep_marks()
+        alg = DMRG(krylovdim=10, eig_maxrestarts=2, cheap_galerkin=True,
+                   maxiter=MESH_SWEEPS, finalize=mark, verbosity=0)
+        k1.launches = 0
+        split.collectives = 0
+        mark()
+        out, envs, eps = find_groundstate(psi, H, alg)
+        torch.cuda.synchronize()
+        launches = k1.launches
+        E = float(expectation_value(out, H, envs=envs))
+        rows = _mark_intervals(marks)
+        for k, (t, c, n) in enumerate(rows, 1):
+            log(f"[mesh] a: {name} sweep {k}: {t:.3f} s, {c} host syncs, "
+                f"{n} collectives")
+        runs[name] = (out, envs, E, rows, launches, psi)
+    _, _, E_u, rows_u, _, _ = runs["unsharded"]
+    out, envs, E_m, rows_m, launches, psi_m = runs["mesh"]
+    idle = _mesh_sweep_idle(mesh, H, runs["unsharded"][0], out)
+    log("[mesh] a: one more sweep from each run's state: " + "; ".join(
+        f"{k} {w:.1f} ms, device busy " + (
+            f"{b:.1f} ms (idle share {1 - b / w:.1%})" if b else
+            "not measured (no device time in the trace)")
+        for k, (w, b) in idle.items()))
+    costs = _collective_costs(mesh, (D, d, D))
+    log(f"[mesh] a: one collective at the center tensor's size ({D}, {d}, "
+        f"{D}) float32, per call over 200: " + "; ".join(
+            f"{k} {v['host_ms'] * 1e3:.1f} us to issue, "
+            f"{v['stream_ms'] * 1e3:.1f} us on the stream"
+            for k, v in costs.items()))
+    log(json.dumps({
+        "metric": f"mesh_dmrg_sweep_time_tfim_L{L}_D{D}_float32",
+        "value": _later_mean(rows_m, 0), "unit": "s",
+        "sweeps": len(rows_m), "host_syncs_per_sweep": _later_mean(rows_m, 1),
+        "collectives_per_sweep": _later_mean(rows_m, 2),
+        "unsharded_sweep_time": _later_mean(rows_u, 0),
+        "unsharded_host_syncs_per_sweep": _later_mean(rows_u, 1),
+        "collective_issue_us": {k: v["host_ms"] * 1e3
+                                for k, v in costs.items()},
+        "idle_share": {k: (1 - b / w if b else None)
+                       for k, (w, b) in idle.items()},
+        "mesh": "bond=1, one NCCL rank"}))
+    log(f"[mesh] a: E mesh {E_m:.10f}, unsharded {E_u:.10f}, closed form "
+        f"{e0:.10f}, eps {eps:.2e}, K1 launches in the mesh run "
+        f"{launches}")
+    _gate("mesh", "a: mesh DMRG energy, relative to the closed form",
+          abs(E_m - e0) / abs(e0), E_TOL_F32)
+    _gate("mesh", "a: mesh DMRG energy, relative to the unsharded run",
+          abs(E_m - E_u) / abs(E_u), MESH_SAME_TOL)
+    if launches <= 0:
+        raise RuntimeError("leg (a): the mesh DMRG never launched K1")
+    if not _later_mean(rows_m, 2) > 0:
+        raise RuntimeError("leg (a): the mesh DMRG issued no collectives")
+    if not (_placed(out, psi_m) and all(hasattr(t, "placements")
+                                        for t in (envs.GLs, envs.GRs))):
+        raise RuntimeError("leg (a): the outputs are not DTensors in the "
+                           "input's placements")
+    if not torch.isfinite(out.AC.to_local()).all():
+        raise RuntimeError("leg (a): the mesh DMRG state is not finite")
+    return launches
+
+
+def _mesh_vumps(mesh, psi0, env0):
+    """Leg (b): from phase 7's last state (TFIM g=1.5, D=256, float32,
+    one-site cell), MESH_VUMPS_ITERS iterations unsharded and then with
+    the bond axes sharded over the one-rank mesh."""
+    import torch
+    from mpskit_tpu_torch import expectation_value, \
+        transverse_field_ising_lattice
+    from mpskit_tpu_torch.algorithms.vumps import _vumps_iteration_impl
+    from mpskit_tpu_torch.config import matmul_precision
+    from mpskit_tpu_torch.parallel import shard_infinite_mps, split
+    from mpskit_tpu_torch.parallel import sharded
+    from mpskit_tpu_torch.parallel.split import BondSplit
+
+    a = VUMPS_ARGS
+    H = transverse_field_ising_lattice(g=VUMPS_G)
+    e0 = tfim_density(VUMPS_G)
+    sp = BondSplit(mesh, psi0.D)
+    res = {}
+    with matmul_precision():
+        for name in ("unsharded", "mesh"):
+            psi, env = psi0, env0
+            psi_in = shard_infinite_mps(psi0, mesh) if name == "mesh" \
+                else None
+            if psi_in is not None:
+                psi = sharded._whole_infinite(psi_in)
+            mark, marks = _sweep_marks()
+            split.collectives = 0
+            mark()
+            for _ in range(MESH_VUMPS_ITERS):
+                if name == "mesh":
+                    psi, eps, env, _ = sharded.vumps_iteration(
+                        sp, None, psi, H, a["m"], a["restarts"],
+                        a["env_tol_static"], a["inner_tol"], env_guess=env)
+                else:
+                    psi, eps, env, _ = _vumps_iteration_impl(
+                        psi, H, a["m"], a["restarts"], a["gauge_tol"],
+                        a["env_tol_static"], a["inner_tol"], env_guess=env)
+                mark()
+            rows = _mark_intervals(marks)
+            out = (sharded._infinite_out(psi_in, mesh, psi)
+                   if psi_in is not None else psi)
+            e = float(expectation_value(out, H)[0])
+            res[name] = (e, rows, out, psi_in)
+            log(f"[mesh] b: {name}: {_later_mean(rows, 0) * 1e3:.3f} ms per "
+                f"iteration, {_later_mean(rows, 1):.1f} host syncs, "
+                f"{_later_mean(rows, 2):.1f} collectives; e {e:.10f}")
+    e_u, rows_u, _, _ = res["unsharded"]
+    e_m, rows_m, out, psi_in = res["mesh"]
+    log(json.dumps({
+        "metric": f"mesh_vumps_iteration_time_tfim_D{psi0.D}_float32",
+        "value": _later_mean(rows_m, 0), "unit": "s",
+        "iterations": len(rows_m),
+        "host_syncs_per_iter": _later_mean(rows_m, 1),
+        "collectives_per_iter": _later_mean(rows_m, 2),
+        "unsharded_iteration_time": _later_mean(rows_u, 0),
+        "mesh": "bond=1, one NCCL rank"}))
+    _gate("mesh", "b: mesh VUMPS energy density against the exact one",
+          abs(e_m - e0), 1e-5)
+    _gate("mesh", "b: mesh VUMPS energy density against the unsharded "
+          "iterations", abs(e_m - e_u), MESH_VUMPS_SAME_TOL)
+    if not (_later_mean(rows_m, 2) > 0 and _placed(out, psi_in)):
+        raise RuntimeError("leg (b): no collectives, or the outputs are not "
+                           "in the input's placements")
+
+
+def _mesh_rsdmrg(mesh):
+    """Leg (c): phase 19 (a)'s RS-DMRG (TFIM g=1.5, L=32, D=512, float32,
+    nseg 4, 2 warmup sweeps, seed 53), MESH_RS_ROUNDS rounds unsharded and
+    then with the segments over the site axis of make_mesh(site=1)."""
+    import torch
+    from mpskit_tpu_torch import (
+        FiniteMPS, RealSpaceParallelDMRG, expectation_value,
+        transverse_field_ising_lattice,
+    )
+    from mpskit_tpu_torch.algorithms.rsdmrg import find_groundstate_rsdmrg
+    from mpskit_tpu_torch.kernels import ac_apply as k1
+    from mpskit_tpu_torch.parallel import split
+
+    H = transverse_field_ising_lattice(g=RS_G)
+    energies = {}
+    for name, m in (("unsharded", None), ("mesh", mesh)):
+        gen = torch.Generator(device="cuda").manual_seed(53)
+        psi = FiniteMPS.random(RS_L, 2, RS_D, torch.float32, "cuda", gen)
+        k1.launches = 0
+        split.collectives = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, envs, eps = find_groundstate_rsdmrg(
+            psi, H, RealSpaceParallelDMRG(
+                nseg=RS_NSEG, warmup=2, krylovdim=10, eig_maxrestarts=2,
+                maxiter=MESH_RS_ROUNDS, verbosity=0), mesh=m)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+        energies[name] = float(expectation_value(out, H, envs=envs))
+        log(f"[mesh] c: {name}: 2 warmup sweeps + {MESH_RS_ROUNDS} rounds "
+            f"{t:.3f} s, E {energies[name]:.10f}, K1 launches "
+            f"{k1.launches}, collectives {split.collectives}")
+    _gate("mesh", "c: RS-DMRG over the site axis against the unsharded "
+          "rounds (relative)", abs(energies["mesh"] - energies["unsharded"])
+          / abs(energies["unsharded"]), MESH_SAME_TOL)
+    if k1.launches <= 0 or split.collectives <= 0:
+        raise RuntimeError("leg (c): K1 never ran in the warmup, or the "
+                           "segments were not gathered")
+
+
+def phase_mesh(psi_vumps, env_vumps):
+    """Phase 23: the device mesh on one card (a one-rank NCCL group that
+    make_mesh starts; the collectives are issued and counted all the
+    same)."""
+    import torch.distributed as dist
+    from mpskit_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(bond=1)
+    log(f"[mesh] {mesh}, backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}")
+    try:
+        launches = _mesh_dmrg(mesh)
+        _mesh_vumps(mesh, psi_vumps, env_vumps)
+        _mesh_rsdmrg(make_mesh(site=1))
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def phase_measure():
     """Phase 17: the measurement surface on three ground states with exact
     oracles, and K1 at leg (a)'s shape (w=4) and on its general path."""
@@ -4600,7 +4940,7 @@ def main():
     psi_dmrg = timed(phase_f64)
     launches = timed(phase_slice)
     psi_vumps = timed(phase_vumps_f64)
-    timed(phase_vumps_slice)
+    psi_vumps_slice = timed(phase_vumps_slice)
     timed(phase_dmrg2_f64)
     E64_dmrg2 = timed(phase_dmrg2_slice)
     timed(phase_bonds, psi_vumps, psi_dmrg)
@@ -4615,6 +4955,7 @@ def main():
     launches_u1 = timed(phase_symmetric)
     launches_su2 = timed(phase_su2, E64_dmrg2)
     launches_anyon = timed(phase_anyon)
+    launches_mesh = timed(phase_mesh, *psi_vumps_slice)
     log(json.dumps({"kernels": [{
         "name": "ac_apply_bf16", "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": launches,
@@ -4646,7 +4987,8 @@ def main():
         "launches_rsdmrg_rounds": launches_rsdmrg["rounds"],
         "launches_rsdmrg_segments_cold": launches_rsdmrg["segments_cold"],
         "launches_u1": launches_u1, "launches_su2": launches_su2,
-        "launches_anyon": launches_anyon}]}))
+        "launches_anyon": launches_anyon,
+        "launches_mesh": launches_mesh}]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

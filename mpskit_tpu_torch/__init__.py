@@ -55,11 +55,16 @@ family; slice 13 the category / anyon family of `symmetry/` (fusion
 categories with and without multiplicities, anyonic chain MPOs, the
 Fibonacci hard-hexagon boundary, masked anyonic VUMPS and the
 sector-resolved anyonic DMRG2 / IDMRG2) with the sector-masked boundary
-and environment paths. The package imports torch and never jax; the JAX
-package stays the reference the tests hold it to."""
+and environment paths. Slice 14 adds the device mesh (`parallel/`,
+MeshConfig): bond-sharded one-site DMRG, VUMPS (the unit cell optionally
+over the mesh's site axis) and finite TDVP on local shards with explicit
+`torch.distributed` collectives, RS-DMRG's segments over the site axis,
+and every other entry point replicated under a mesh. The package imports
+torch and never jax; the JAX package stays the reference the tests hold
+it to."""
 
 from . import config, models
-from .config import Defaults
+from .config import Defaults, MeshConfig
 from .algorithms import (
     DMRG, DMRG2, IDMRG1, IDMRG2, TDVP, TDVP2, VOMPS, VUMPS, WI, WII,
     ChainedAlg, DynamicalDMRG, RealSpaceParallelDMRG, ScanResult, UnionAlg, FiniteExcited, FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2,

@@ -9,7 +9,11 @@ correlators, transfer spectra, variance, exact diagonalization, periodic
 boundary conditions and the fidelity susceptibility; window DMRG and
 TDVP, dynamical DMRG (`propagator`) and thermal purifications;
 segment-parallel DMRG (RealSpaceParallelDMRG) and parameter scans of
-VUMPS ground states."""
+VUMPS ground states.
+
+Under a device mesh (`parallel/`), one-site DMRG, VUMPS and the finite
+TDVP step run on a sharded state's shards; the entry points wrapped at
+the end of this file gather a sharded state once and run replicated."""
 
 from .approximate import FitDMRG, FitDMRG2, FitIDMRG, FitIDMRG2, approximate
 
@@ -57,3 +61,24 @@ from .toolbox import (
 )
 from .unionalg import ChainedAlg, UnionAlg
 from .vumps import VUMPS, find_groundstate_vumps
+
+# the entry points that run replicated under a mesh: a sharded argument is
+# gathered once at entry and the result handed back in its placements
+from ..parallel.replicated import replicated_under_mesh as _replicated
+
+(approximate, calc_galerkin, changebonds, correlation_length, correlator,
+ entanglement_spectrum, entropy, entropy_profile, excitations,
+ excitations_boundary, excitations_boundary_multiline, expectation_value,
+ fidelity_susceptibility, find_groundstate_dmrg2, find_groundstate_grassmann,
+ find_groundstate_idmrg1, find_groundstate_idmrg2, find_groundstate_rsdmrg,
+ leading_boundary, marek_gap, propagator, string_correlator, time_evolve,
+ transfer_spectrum, variance) = map(
+    _replicated,
+    (approximate, calc_galerkin, changebonds, correlation_length, correlator,
+     entanglement_spectrum, entropy, entropy_profile, excitations,
+     excitations_boundary, excitations_boundary_multiline,
+     expectation_value, fidelity_susceptibility, find_groundstate_dmrg2,
+     find_groundstate_grassmann, find_groundstate_idmrg1,
+     find_groundstate_idmrg2, find_groundstate_rsdmrg, leading_boundary,
+     marek_gap, propagator, string_correlator, time_evolve,
+     transfer_spectrum, variance))

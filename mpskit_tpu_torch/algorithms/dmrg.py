@@ -20,6 +20,7 @@ from ..environments.finite import (
     right_boundary, stack_W,
 )
 from ..linalg.lanczos import eigsh_smallest
+from ..parallel.replicated import is_sharded
 from ..states.finitemps import FiniteMPS, physical_bond_dims, support_mask
 from ..states.windowmps import WindowMPS
 from ..tensors.ops import leftorth_hybrid, orth_in, rightorth_hybrid
@@ -229,9 +230,13 @@ def find_groundstate_dmrg_window(psi, H, alg: DMRG = DMRG()):
 
 def find_groundstate_dmrg(psi: FiniteMPS, H, alg: DMRG = DMRG()):
     """Run one-site DMRG. Returns (psi, envs, epsilon); a WindowMPS goes to
-    `find_groundstate_dmrg_window`."""
+    `find_groundstate_dmrg_window`, a bond-sharded state (`parallel.mesh`)
+    to `parallel.sharded.find_groundstate_dmrg_sharded`."""
     if isinstance(psi, WindowMPS):
         return find_groundstate_dmrg_window(psi, H, alg)
+    if is_sharded(psi.AC):
+        from ..parallel.sharded import find_groundstate_dmrg_sharded
+        return find_groundstate_dmrg_sharded(psi, H, alg)
     L, D, d = psi.length, psi.D, psi.physicaldim
     dtype, device = psi.dtype, psi.device
     psi = psi.move_center(0)

@@ -6,6 +6,7 @@ symmetric states routed to their sector solvers)."""
 from __future__ import annotations
 
 from ..operators.lazysum import LazySum, MultipliedOperator
+from ..parallel.replicated import has_sharded, run_replicated
 from ..states.finitemps import FiniteMPS
 from ..states.infinitemps import InfiniteMPS
 from ..states.windowmps import WindowMPS
@@ -64,7 +65,17 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     (state, e_density, eps); an SU2FiniteMPS runs the reduced DMRG2 /
     DMRG (the generic DMRG and DMRG2 translate) and returns (psi, E, eps);
     both need a ReducedMPO. As in the JAX package there is no anyonic
-    branch: an anyonic state raises TypeError naming its own solvers."""
+    branch: an anyonic state raises TypeError naming its own solvers.
+
+    A sharded FiniteMPS under DMRG and a sharded InfiniteMPS under VUMPS
+    run on their shards (`parallel/sharded.py`); every other sharded
+    call is gathered once and runs replicated (`parallel/replicated.py`)."""
+    if has_sharded(psi, envs) and not (
+            isinstance(alg, ChainedAlg)
+            or (type(psi) is FiniteMPS and isinstance(alg, DMRG))
+            or (type(psi) is InfiniteMPS and isinstance(alg, VUMPS))):
+        return run_replicated("find_groundstate", find_groundstate, psi, H,
+                              alg, envs, tol, maxiter, trscheme, verbosity)
     if isinstance(H, LazySum):
         # a time-independent sum is materialized eagerly: the summed FSM is
         # one wider MPO, the fastest form for the matvecs

@@ -21,8 +21,15 @@ are a host loop over the port's `_dmrg_sweep_impl` / `_dmrg2_sweep_impl`,
 which is the same computation in sequence. The segment sweeps keep the
 first-restart probe (kernel K1 for a float32 state on the card): the JAX
 package turns it off only because under vmap its `lax.cond` would run
-both branches. Device-mesh sharding (`mesh=`) comes with the last item of
-ROADMAP.md's queue 1.
+both branches.
+
+With `mesh=` (a DeviceMesh of `parallel.mesh.make_mesh`) the segment axis
+is sharded over the mesh's "site" axis, as the JAX package shards its
+vmapped axis: each rank sweeps its own nseg / site segments, the updated
+segments and their solver figures are all-gathered over "site", and the
+capture, stitch and re-canonicalization run replicated on every rank. The
+ranks of one "site" coordinate (its "bond" axis) sweep the same segments.
+The result is the unsharded round's.
 """
 
 from __future__ import annotations
@@ -145,12 +152,14 @@ def _solve_left(C, A, lam):
 def _rs_round(ARs, AC, Ws, maskf, bond_masks, nseg: int, m: int,
               restarts: int, inner_tol: float, lam_reg: float,
               reorth: str = "local1", stitch_f64: bool = False,
-              two_site: bool = False, trscheme=None, sup=None):
+              two_site: bool = False, trscheme=None, sup=None,
+              site=None):
     """One round: capture, segment sweeps, stitch, re-canonicalization.
     The state is at center 0 in and out (AC and ARs[1:]). Returns (ARs,
     AC, the eigenvalue of segment 0's last solve (a host float), the
     largest segment epsilon (host), (# unconverged solves, worst
-    residual))."""
+    residual)). `site` (a `parallel.split.MeshAxis`) shares the segment
+    sweeps out over the ranks of a mesh axis."""
     L, D = ARs.shape[0], ARs.shape[1]
     w = Ws.shape[1]
     dtype, device = AC.dtype, AC.device
@@ -184,9 +193,8 @@ def _rs_round(ARs, AC, Ws, maskf, bond_masks, nseg: int, m: int,
     GRs = compute_right_envs(ARs, Ws, right_boundary(w, D, dtype, device))
 
     # ---- 3. segment sweeps (segment k owns sites a_k .. a_k + Lseg - 1) ----
-    heads, tails = [], []
-    lams, epss, n_unconv, worst = [], [], 0, 0.0
-    for k in range(nseg):
+    heads, tails, stats = [], [], []
+    for k in (range(nseg) if site is None else site.block(nseg, "segments")):
         a = k * Lseg
         AC0 = AC if k == 0 else torch.einsum(
             "lm,mpr->lpr", Cs[a - 1], ARs[a].to(hi)).to(dtype)
@@ -203,10 +211,14 @@ def _rs_round(ARs, AC, Ws, maskf, bond_masks, nseg: int, m: int,
         _, ARs_k, AC_k, _, lam, eps, diag = out
         heads.append(AC_k.to(hi))
         tails.append(ARs_k.to(hi))
-        lams.append(lam)
-        epss.append(eps)
-        n_unconv += diag[0]
-        worst = max(worst, diag[1])
+        stats.append((lam, eps) + tuple(diag))
+    if site is not None:
+        # every rank's segments, in segment order, and their figures
+        heads = list(site.gather(torch.stack(heads), 0))
+        tails = list(site.gather(torch.stack(tails), 0))
+        stats = site.gather(torch.tensor(stats, dtype=torch.float64,
+                                         device=device), 0).tolist()
+    lams, epss, n_unconv, worst = zip(*stats)
 
     # ---- 4. stitch: centers back in, stale interface bond matrices out.
     # Segment k > 0's center was seeded as C(a_k) AR(a_k) while segment
@@ -231,7 +243,8 @@ def _rs_round(ARs, AC, Ws, maskf, bond_masks, nseg: int, m: int,
     AC_out = torch.einsum("lm,mpr->lpr", C, AR) * maskh[0]
     AC_out = AC_out / torch.clamp(torch.linalg.vector_norm(AC_out),
                                   min=1e-30)
-    return ARs_out, AC_out.to(dtype), lams[0], max(epss), (n_unconv, worst)
+    return (ARs_out, AC_out.to(dtype), lams[0], max(epss),
+            (int(sum(n_unconv)), max(worst)))
 
 
 def find_groundstate_rsdmrg(psi: FiniteMPS, H,
@@ -242,13 +255,9 @@ def find_groundstate_rsdmrg(psi: FiniteMPS, H,
     The rounds are block-Jacobi and at finite precision can drift after
     converging, so the lowest-energy iterate is kept (each round's site
     eigenvalue is a Rayleigh quotient of the global H), and the run stops
-    after 3 rounds without improvement, returning the best. `mesh` must
-    be None: device-mesh sharding comes with the last item of ROADMAP.md's
-    queue 1."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "RealSpaceParallelDMRG over a device mesh is not ported yet: "
-            "the mesh comes with the last item of queue 1 (ROADMAP.md)")
+    after 3 rounds without improvement, returning the best. `mesh`: a
+    DeviceMesh whose "site" axis shares out the segments (its size must
+    divide nseg); the state and the result are whole on every rank."""
     L, D, d = psi.length, psi.D, psi.physicaldim
     if alg.nseg < 2:
         raise ValueError("nseg must be >= 2 (use DMRG for a single segment)")
@@ -256,6 +265,14 @@ def find_groundstate_rsdmrg(psi: FiniteMPS, H,
         raise ValueError(f"nseg={alg.nseg} must divide L={L}")
     if L // alg.nseg < 2:
         raise ValueError("segments need at least 2 sites")
+    site = None
+    if mesh is not None:
+        nsite = mesh.size(mesh.mesh_dim_names.index("site"))
+        if alg.nseg % nsite:
+            raise ValueError(f"the mesh's site size {nsite} must divide "
+                             f"nseg={alg.nseg}")
+        from ..parallel.split import MeshAxis
+        site = MeshAxis(mesh, "site")
     dtype, device = psi.dtype, psi.device
     rdt = _real_dtype(dtype)
     psi = psi.move_center(0)
@@ -304,7 +321,7 @@ def find_groundstate_rsdmrg(psi: FiniteMPS, H,
                 ARs, AC, Ws, maskf, bond_masks, alg.nseg, alg.krylovdim,
                 alg.eig_maxrestarts, inner_tol, lam_reg, reorth=alg.reorth,
                 stitch_f64=stitch_f64, two_site=alg.two_site,
-                trscheme=alg.trscheme, sup=sup)
+                trscheme=alg.trscheme, sup=sup, site=site)
             if alg.two_site:
                 # two-site rounds report the discarded weight; convergence
                 # is energy stationarity (as in DMRG2)

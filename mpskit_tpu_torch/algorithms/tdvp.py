@@ -33,6 +33,7 @@ from ..linalg.expm import expm_multiply_err
 from ..operators.lazysum import LazySum, MultipliedOperator
 from ..operators.mpo import MPOHamiltonian
 from ..operators.window import Window
+from ..parallel.replicated import has_sharded, is_sharded, run_replicated
 from ..states.finitemps import FiniteMPS, support_mask
 from ..states.gauging import regauge_ACC, regauge_CAC
 from ..states.infinitemps import InfiniteMPS
@@ -257,7 +258,12 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
     Under a plain operator the boundaries stay frozen and envs is None.
     An SU2FiniteMPS (complex) under a ReducedMPO takes one reduced
     one-site TDVP step (SU2TDVP, or TDVP's Krylov dimension capped at 24)
-    and returns envs None."""
+    and returns envs None. A bond-sharded FiniteMPS (`parallel.mesh`)
+    takes its TDVP step on its shards (`parallel/sharded.py`); every other
+    sharded call is gathered once and runs replicated."""
+    if has_sharded(psi, envs) and (type(psi) is not FiniteMPS
+                                   or isinstance(alg, TDVP2)):
+        return run_replicated("timestep", timestep, psi, H, t, dt, alg, envs)
     if isinstance(psi, SU2FiniteMPS):
         # SU(2)-reduced finite TDVP, as in the JAX package
         alg = TDVP() if alg is None else alg
@@ -312,6 +318,11 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
                 raise TypeError("TDVP2 re-splits bonds without their "
                                 "charges; a SymmetricFiniteMPS takes TDVP")
             return _timestep_finite2_entry(psi, H, dt, alg)
+        if is_sharded(inner.AC):
+            from ..parallel.sharded import timestep_finite_sharded
+            out, exp_err = timestep_finite_sharded(inner, H, dt, alg)
+            _warn_exp(alg, exp_err, name="TDVP(finite, mesh)")
+            return out, None
         inner = inner.move_center(0)
         L, D = inner.length, inner.D
         dtype, device = inner.dtype, inner.device

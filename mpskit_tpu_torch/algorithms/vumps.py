@@ -22,6 +22,7 @@ from ..config import Defaults, VERBOSE_ITER, VERBOSE_WARN, matmul_precision
 from ..environments.finite import stack_W
 from ..environments.infinite_ham import hamiltonian_environments
 from ..linalg.lanczos import eigsh_smallest
+from ..parallel.replicated import is_sharded
 from ..states.gauging import regauge_ACC, regauge_CAC
 from ..states.infinitemps import InfiniteMPS
 from ..utils.dynamictols import updatetol
@@ -123,7 +124,12 @@ def _vumps_iteration_impl(psi: InfiniteMPS, H, m: int, restarts: int,
 
 
 def find_groundstate_vumps(psi: InfiniteMPS, H, alg: VUMPS = VUMPS()):
-    """Run VUMPS. Returns (psi, envs, eps)."""
+    """Run VUMPS. Returns (psi, envs, eps). A sharded state
+    (`parallel.mesh`) goes to
+    `parallel.sharded.find_groundstate_vumps_sharded`."""
+    if is_sharded(psi.AL):
+        from ..parallel.sharded import find_groundstate_vumps_sharded
+        return find_groundstate_vumps_sharded(psi, H, alg)
     log = IterLog("VUMPS", alg.verbosity)
     eps = 1.0
     it = 0

@@ -1,9 +1,11 @@
-"""Global defaults, verbosity levels and the float32 precision policy
-(counterpart of mpskit_tpu/config.py)."""
+"""Global defaults, verbosity levels, the float32 precision policy and the
+device-mesh configuration (counterpart of mpskit_tpu/config.py)."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Optional
 
 import torch
 
@@ -57,3 +59,31 @@ def matmul_precision():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh configuration for sharded contractions (counterpart of
+    mpskit_tpu.config.MeshConfig): a `torch.distributed` DeviceMesh of
+    `parallel.mesh.make_mesh` and the names of its axes over which the
+    virtual (bond) dimension and the unit-cell / site axis are sharded."""
+
+    mesh: Optional["torch.distributed.device_mesh.DeviceMesh"] = None
+    bond_axis: Optional[str] = "bond"
+    site_axis: Optional[str] = None
+
+    @staticmethod
+    def single_device() -> "MeshConfig":
+        return MeshConfig(mesh=None)
+
+
+_GLOBAL_MESH: MeshConfig = MeshConfig.single_device()
+
+
+def set_mesh(cfg: MeshConfig) -> None:
+    global _GLOBAL_MESH
+    _GLOBAL_MESH = cfg
+
+
+def get_mesh() -> MeshConfig:
+    return _GLOBAL_MESH

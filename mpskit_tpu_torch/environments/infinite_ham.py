@@ -49,13 +49,15 @@ def transfer_right_block(v, Wab, A_ket, A_bra):
     return torch.einsum("...xsm,...ysm->...xy", A_bra.conj(), t)
 
 
-def _source_col_left(GL_i, Wcol, A):
+def _source_col_left(GL_i, Wcol, A, A_bra=None):
     """Contributions into one FSM level from all lower levels: GL_i
     (..., w, D, D), Wcol (..., w, d, d) with the diagonal entry zeroed.
     Folding the small W column into GL first costs d^2 D^3 + d D^3 instead
-    of 2 w d D^3 (the JAX package's planner order)."""
+    of 2 w d D^3 (the JAX package's planner order). A_bra (default A) may
+    be a slice of A's columns: the output's rows are then that slice."""
+    A_bra = A if A_bra is None else A_bra
     t = torch.einsum("...axy,...ast->...xyst", GL_i, Wcol)   # w d^2 D^2
-    t = torch.einsum("...xyst,...xsm->...ytm", t, A.conj())  # d^2 D^3
+    t = torch.einsum("...xyst,...xsm->...ytm", t, A_bra.conj())  # d^2 D^3
     return torch.einsum("...ytm,...ytn->...mn", t, A)        # d D^3
 
 
@@ -90,7 +92,7 @@ def _regularize(x, caps, eye, mask):
 
 
 def calc_envs_paired(psi: InfiniteMPS, H: MPOHamiltonian, tol=1e-12,
-                     GL_init=None, GR_init=None):
+                     GL_init=None, GR_init=None, split=None):
     """Both environment families in one direction-batched walk.
 
     transfer_right(v, W, A) == transfer_left(v, W, A~) and
@@ -99,7 +101,10 @@ def calc_envs_paired(psi: InfiniteMPS, H: MPOHamiltonian, tol=1e-12,
     the reversed, leg-swapped unit cell. Level b=k of the left walk and
     level a=w-1-k of the right walk are then solved together as one
     block-diagonal geometric-series GMRES on (2, D, D) operands. Returns
-    (GLs, GRs, e_cell, resid)."""
+    (GLs, GRs, e_cell, resid). With a `parallel.split.BondSplit` the
+    walk's D^3 products run on this rank's slice of the bond axis."""
+    block = transfer_left_block if split is None else split.transfer_left_block
+    source = _source_col_left if split is None else split.source_col_left
     L, D = psi.period, psi.D
     w = H.odim
     dtype, device = psi.dtype, psi.device
@@ -129,8 +134,7 @@ def calc_envs_paired(psi: InfiniteMPS, H: MPOHamiltonian, tol=1e-12,
         G_eff = torch.stack([GLs, torch.flip(GRs, (0,))], dim=1)
         # the sources from the lower levels do not depend on this level's
         # value: one evaluation serves both passes around the cell
-        srcs = [_source_col_left(G_eff[i], Wc_eff[i], A_eff[i])
-                for i in range(L)]
+        srcs = [source(G_eff[i], Wc_eff[i], A_eff[i]) for i in range(L)]
 
         # (the closures below are used within this level only)
         def cycle(x):
@@ -138,14 +142,13 @@ def calc_envs_paired(psi: InfiniteMPS, H: MPOHamiltonian, tol=1e-12,
             after site i, stacked (L, 2, D, D)."""
             xs = []
             for i in range(L):
-                x = srcs[i] + transfer_left_block(x, Wd_eff[i], A_eff[i],
-                                                  A_eff[i])
+                x = srcs[i] + block(x, Wd_eff[i], A_eff[i], A_eff[i])
                 xs.append(x)
             return torch.stack(xs)
 
         def diag_cycle(x):
             for i in range(L):
-                x = transfer_left_block(x, Wd_eff[i], A_eff[i], A_eff[i])
+                x = block(x, Wd_eff[i], A_eff[i], A_eff[i])
             return x
 
         F = cycle(torch.zeros((2, D, D), dtype=dtype, device=device))[-1]
@@ -193,7 +196,8 @@ def calc_envs_paired(psi: InfiniteMPS, H: MPOHamiltonian, tol=1e-12,
 
 
 def hamiltonian_environments(psi: InfiniteMPS, H: MPOHamiltonian,
-                             tol=1e-12, env_init=None) -> InfiniteHamEnv:
+                             tol=1e-12, env_init=None,
+                             split=None) -> InfiniteHamEnv:
     """Both environment families: the effective Hamiltonian at site i uses
     (GLs[i], GRs[i]), the zero-site (bond i) one (GLs[i+1], GRs[i]).
 
@@ -202,11 +206,12 @@ def hamiltonian_environments(psi: InfiniteMPS, H: MPOHamiltonian,
     dtype, the attainable true-residual level (the JAX package measured
     2.5e-4 relative at D=256 float32, within 15 % of this model): with an
     unreachable tolerance every solve would spend its stall-detection
-    cycles finding the floor."""
+    cycles finding the floor. `split`: see `calc_envs_paired`."""
     GL0 = None if env_init is None else env_init.GLs
     GR0 = None if env_init is None else env_init.GRs
     rdt = psi.AL.real.dtype if psi.AL.is_complex() else psi.dtype
     tol = max(float(tol),
               10 * math.sqrt(2 * psi.D * psi.D) * torch.finfo(rdt).eps)
-    GLs, GRs, eL, r = calc_envs_paired(psi, H, tol, GL_init=GL0, GR_init=GR0)
+    GLs, GRs, eL, r = calc_envs_paired(psi, H, tol, GL_init=GL0, GR_init=GR0,
+                                       split=split)
     return InfiniteHamEnv(GLs, GRs, eL.real / psi.period, r)

@@ -12,6 +12,7 @@ import functools
 
 import torch
 
+from ..parallel.replicated import is_sharded
 from .build import load_library
 
 launches = 0
@@ -72,8 +73,12 @@ def ac_apply_bf16(GL, W, GR, x):
     f32 accumulation. GL, GR (w, D, D), W (w, w, d, d), x (D, d, D), float32.
 
     On the CPU this is the plain version; on the card it launches K1 on the
-    current stream or raises."""
+    current stream or raises. A DTensor raises TypeError: its data_ptr() is
+    a wrapper's, not the shard's (pass the gathered or local tensor)."""
     global launches
+    if any(is_sharded(t) for t in (GL, W, GR, x)):
+        raise TypeError("ac_apply_bf16 takes plain tensors, got a DTensor: "
+                        "pass its full_tensor() or to_local()")
     if x.device.type == "cpu":
         return ac_apply_bf16_reference(GL, W, GR, x)
     w, d, D = _check(GL, W, GR, x)

@@ -14,9 +14,9 @@ import pytest
 import mpskit_tpu_torch
 from test_export_parity import REFERENCE_EXPORTS
 
-# names of the JAX package that the port does not have yet (ROADMAP.md,
-# queue 1: MeshConfig comes with the device mesh, the last item)
-WAITING = {"MeshConfig"}
+# names of the JAX package that the port does not have yet (none since the
+# device mesh, the last item of ROADMAP.md's queue 1)
+WAITING = set()
 
 
 def _jax_init_names():

@@ -3,14 +3,17 @@ CPU: RealSpaceParallelDMRG one-site and two-site with 2 and 4 segments
 from the same seeded state (carried across as numpy arrays), both against
 exact diagonalization; the JAX package's float32 regression case through
 the float64 stitch (the auto default) against ED, with the finalize hook;
-and the validation errors, `mesh=` included.
+and the validation errors, a mesh's site size included (the mesh runs
+are in test_torch_mesh.py).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sps
 import torch
+from scipy.sparse.linalg import eigsh
 
 from mpskit_tpu.algorithms import expectation_value as jexpval
 from mpskit_tpu.algorithms import find_groundstate as jfind
@@ -41,6 +44,33 @@ def _start(dtype=jnp.float64, seed=0, D=D):
 def _ed(g=G):
     return float(np.linalg.eigvalsh(
         transverse_field_ising(g=g).to_matrix(L))[0])
+
+
+def _ed_sparse(H, n):
+    """The lowest eigenvalue of H on n sites: the FSM's levels as sparse
+    operators on the growing chain (level 0 in, level w-1 out), Lanczos
+    through scipy. At n=12 the dense 4096 x 4096 `eigvalsh` takes minutes
+    on a loaded CPU; this takes a fraction of a second."""
+    W = np.asarray(H.W)
+    w = W.shape[1]
+    M = [sps.identity(1, format="csr")] + [None] * (w - 1)
+    for i in range(n):
+        Wi = W[i % W.shape[0]]
+        new = [None] * w
+        for a in range(w):
+            for b in range(w):
+                if M[a] is not None and np.any(Wi[a, b]):
+                    t = sps.kron(M[a], sps.csr_matrix(Wi[a, b]),
+                                 format="csr")
+                    new[b] = t if new[b] is None else new[b] + t
+        M = new
+    return float(eigsh(M[w - 1], k=1, which="SA", tol=1e-14)[0][0])
+
+
+def test_sparse_ed_matches_dense():
+    """The sparse ED of the float32 pin equals the dense one at L=8."""
+    H = transverse_field_ising(g=1.5)
+    assert abs(_ed_sparse(H, L) - _ed(1.5)) < 1e-10
 
 
 @pytest.mark.parametrize("two_site,nseg", [(False, 2), (False, 4),
@@ -91,7 +121,7 @@ def test_rsdmrg_float32_stitch_and_finalize():
         nseg=4, tol=1e-12, maxiter=12, warmup=2, verbosity=0,
         finalize=hook))
     Et = float(expectation_value(psit, H, envs=envst))
-    e0 = float(np.linalg.eigvalsh(H.to_matrix(Lg))[0])
+    e0 = _ed_sparse(H, Lg)
     assert abs(Et - e0) / abs(e0) < 1e-5
     assert psit.AC.dtype == torch.float32
     assert seen and [s[0] for s in seen] == list(range(1, len(seen) + 1))
@@ -100,16 +130,24 @@ def test_rsdmrg_float32_stitch_and_finalize():
 
 def test_rsdmrg_validates_segmentation():
     """nseg < 2, nseg not dividing L and one-site segments raise
-    ValueError (as in the JAX package); a device mesh raises
-    NotImplementedError naming the mesh item."""
+    ValueError (as in the JAX package); so does a mesh whose site size
+    does not divide nseg."""
     _, pt = _start()
     H = transverse_field_ising(g=G)
     for nseg in (1, 3, 8):
         with pytest.raises(ValueError):
             find_groundstate_rsdmrg(pt, H, RealSpaceParallelDMRG(nseg=nseg))
-    with pytest.raises(NotImplementedError, match="mesh"):
+
+    class ThreeSites:
+        """A stand-in for a DeviceMesh with 3 ranks on its "site" axis."""
+        mesh_dim_names = ("site", "bond")
+
+        def size(self, dim):
+            return (3, 1)[dim]
+
+    with pytest.raises(ValueError, match="site"):
         find_groundstate_rsdmrg(pt, H, RealSpaceParallelDMRG(nseg=2),
-                                mesh=object())
+                                mesh=ThreeSites())
     small = FiniteMPS.random(4, 2, 4, torch.float64, "cpu",
                              torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="2 sites"):
