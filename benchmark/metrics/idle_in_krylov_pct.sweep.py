@@ -1,0 +1,17 @@
+"""Percent of the device's idle time over one sweep after the window during
+which the host was inside an `eigsh` span (the eigensolves) at any depth:
+the most a graph over the Krylov steps could recover. Idle intervals from
+torch.profiler with the device's activity alone, laid on the program's
+spans (benchmark/program_trace.py); nothing to read off CUDA."""
+
+from benchmark import program_trace
+
+NAME = "idle_in_krylov_pct.sweep"
+
+
+def probe(rec):
+    return program_trace.unit_spans(rec)
+
+
+def read(rec):
+    return program_trace.idle_in_krylov_share(rec, NAME, "sweep")

@@ -28,6 +28,7 @@ from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog
 from ..utils.sync import to_host
+from ..utils.trace import span
 from .derivatives import ac_apply, ac_apply_fast
 from .unionalg import Chainable
 
@@ -120,75 +121,76 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
     drops (a float32 U(1) sweep of the XX chain at D=128 rose 0.1 in
     energy from sweep to sweep; 9e-3 above its sector's energy at D=512
     on the card); in float64 the loss is 1e-12."""
-    L, D = ALs.shape[0], ALs.shape[1]
-    w = Ws.shape[1]
-    dtype, device = AC.dtype, AC.device
-    if GL0 is None:
-        GL0 = left_boundary(w, D, dtype, device)
-    if GRL is None:
-        GRL = right_boundary(w, D, dtype, device)
-    if masks is None:
-        maskf = torch.ones((L, 1, 1, 1), dtype=dtype, device=device)
-    else:
-        maskf = masks.to(dtype)
-    if bulk_flags is None:
-        bulkL = bulkR = np.zeros(L, bool)
-    else:
-        bulkL, bulkR = bulk_flags
+    with span("sweep"):
+        L, D = ALs.shape[0], ALs.shape[1]
+        w = Ws.shape[1]
+        dtype, device = AC.dtype, AC.device
+        if GL0 is None:
+            GL0 = left_boundary(w, D, dtype, device)
+        if GRL is None:
+            GRL = right_boundary(w, D, dtype, device)
+        if masks is None:
+            maskf = torch.ones((L, 1, 1, 1), dtype=dtype, device=device)
+        else:
+            maskf = masks.to(dtype)
+        if bulk_flags is None:
+            bulkL = bulkR = np.zeros(L, bool)
+        else:
+            bulkL, bulkR = bulk_flags
 
-    eps_dev = []  # exact Galerkin residuals, read once at the end
-    lams, resids, convs = [], [], []
+        eps_dev = []  # exact Galerkin residuals, read once at the end
+        lams, resids, convs = [], [], []
 
-    # ---- left-to-right: solve sites 0..L-2 ----
-    GLs = torch.empty((L,) + tuple(GL0.shape), dtype=dtype, device=device)
-    GL = GL0
-    for i in range(L - 1):
-        GLs[i] = GL
-        W, GR = Ws[i], GRs[i + 1]
-        res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
-                          use_fast, maskf[i] if sector_solve else None)
-        ACp = res.eigenvector * maskf[i]
-        ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
-        AL, C = orth_in(leftorth_hybrid, ACp, split_dtype, bool(bulkL[i]))
-        AL = AL * maskf[i]
-        if not cheap_galerkin:
-            eps_dev.append(_galerkin_left(AL, ac_apply(GL, W, GR, ACp)))
-        GL = transfer_left_mpo(GL, W, AL, AL)
-        AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
-        ALs[i] = AL
-        lams.append(res.eigenvalue)
-        resids.append(res.residual)
-        convs.append(res.converged)
-    GLs[L - 1] = GL
+        # ---- left-to-right: solve sites 0..L-2 ----
+        GLs = torch.empty((L,) + tuple(GL0.shape), dtype=dtype, device=device)
+        GL = GL0
+        for i in range(L - 1):
+            GLs[i] = GL
+            W, GR = Ws[i], GRs[i + 1]
+            res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
+                              use_fast, maskf[i] if sector_solve else None)
+            ACp = res.eigenvector * maskf[i]
+            ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
+            AL, C = orth_in(leftorth_hybrid, ACp, split_dtype, bool(bulkL[i]))
+            AL = AL * maskf[i]
+            if not cheap_galerkin:
+                eps_dev.append(_galerkin_left(AL, ac_apply(GL, W, GR, ACp)))
+            GL = transfer_left_mpo(GL, W, AL, AL)
+            AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
+            ALs[i] = AL
+            lams.append(res.eigenvalue)
+            resids.append(res.residual)
+            convs.append(res.converged)
+        GLs[L - 1] = GL
 
-    # ---- right-to-left: solve sites L-1..1 ----
-    GR = GRL
-    for i in range(L - 1, 0, -1):
-        GRs[i + 1] = GR
-        W, GL = Ws[i], GLs[i]
-        res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
-                          use_fast, maskf[i] if sector_solve else None)
-        ACp = res.eigenvector * maskf[i]
-        ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
-        C, AR = orth_in(rightorth_hybrid, ACp, split_dtype, bool(bulkR[i]))
-        AR = AR * maskf[i]
-        if not cheap_galerkin:
-            eps_dev.append(_galerkin_right(AR, ac_apply(GL, W, GR, ACp)))
-        GR = transfer_right_mpo(GR, W, AR, AR)
-        AC = torch.einsum("lpm,mr->lpr", ALs[i - 1], C)
-        ARs[i] = AR
-        lams.append(res.eigenvalue)
-        resids.append(res.residual)
-        convs.append(res.converged)
-    # fresh right envs for the next sweep: GRs[1] = final carry; GRs[0] is
-    # unused and holds the same (as in the JAX package)
-    GRs[1] = GR
-    GRs[0] = GR
+        # ---- right-to-left: solve sites L-1..1 ----
+        GR = GRL
+        for i in range(L - 1, 0, -1):
+            GRs[i + 1] = GR
+            W, GL = Ws[i], GLs[i]
+            res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
+                              use_fast, maskf[i] if sector_solve else None)
+            ACp = res.eigenvector * maskf[i]
+            ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
+            C, AR = orth_in(rightorth_hybrid, ACp, split_dtype, bool(bulkR[i]))
+            AR = AR * maskf[i]
+            if not cheap_galerkin:
+                eps_dev.append(_galerkin_right(AR, ac_apply(GL, W, GR, ACp)))
+            GR = transfer_right_mpo(GR, W, AR, AR)
+            AC = torch.einsum("lpm,mr->lpr", ALs[i - 1], C)
+            ARs[i] = AR
+            lams.append(res.eigenvalue)
+            resids.append(res.residual)
+            convs.append(res.converged)
+        # fresh right envs for the next sweep: GRs[1] = final carry; GRs[0] is
+        # unused and holds the same (as in the JAX package)
+        GRs[1] = GR
+        GRs[0] = GR
 
-    lam = lams[-1]  # eigenvalue at site 1 (last solved)
-    eps = max(to_host(*eps_dev)) if eps_dev else max(resids)
-    diag = (sum(not c for c in convs), max(resids))
-    return ALs, ARs, AC, GRs, lam, eps, diag
+        lam = lams[-1]  # eigenvalue at site 1 (last solved)
+        eps = max(to_host(*eps_dev)) if eps_dev else max(resids)
+        diag = (sum(not c for c in convs), max(resids))
+        return ALs, ARs, AC, GRs, lam, eps, diag
 
 
 def find_groundstate_dmrg_window(psi, H, alg: DMRG = DMRG()):

@@ -29,6 +29,7 @@ from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog
 from ..utils.sync import to_host
+from ..utils.trace import span
 from .derivatives import ac2_apply
 from .unionalg import Chainable
 
@@ -86,66 +87,67 @@ def _dmrg2_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
     (n_unconverged, worst_residual). GL0/GRL override the open-chain
     boundary environments; `sup` is the (L+1, D) bond support of
     `bond_support_vectors`."""
-    L, D = ALs.shape[0], ALs.shape[1]
-    w = Ws.shape[1]
-    dtype, device = AC.dtype, AC.device
-    rdtype = AC.real.dtype if AC.is_complex() else dtype
-    if GL0 is None:
-        GL0 = left_boundary(w, D, dtype, device)
-    if GRL is None:
-        GRL = right_boundary(w, D, dtype, device)
-    if sup is None:
-        supf = torch.ones((L + 1, 1), dtype=rdtype, device=device)
-    else:
-        supf = sup.to(device=device, dtype=rdtype)
+    with span("sweep"):
+        L, D = ALs.shape[0], ALs.shape[1]
+        w = Ws.shape[1]
+        dtype, device = AC.dtype, AC.device
+        rdtype = AC.real.dtype if AC.is_complex() else dtype
+        if GL0 is None:
+            GL0 = left_boundary(w, D, dtype, device)
+        if GRL is None:
+            GRL = right_boundary(w, D, dtype, device)
+        if sup is None:
+            supf = torch.ones((L + 1, 1), dtype=rdtype, device=device)
+        else:
+            supf = sup.to(device=device, dtype=rdtype)
 
-    errs = []  # per-bond discarded weights, read once at the end
-    lams, resids, convs = [], [], []
+        errs = []  # per-bond discarded weights, read once at the end
+        lams, resids, convs = [], [], []
 
-    def solve(GL, W1, W2, GR, theta):
-        res = eigsh_smallest(lambda x: ac2_apply(GL, W1, W2, GR, x), theta,
-                             m, restarts, inner_tol)
-        lams.append(res.eigenvalue)
-        resids.append(res.residual)
-        convs.append(res.converged)
-        return res.eigenvector
+        def solve(GL, W1, W2, GR, theta):
+            res = eigsh_smallest(lambda x: ac2_apply(GL, W1, W2, GR, x), theta,
+                                 m, restarts, inner_tol)
+            lams.append(res.eigenvalue)
+            resids.append(res.residual)
+            convs.append(res.converged)
+            return res.eigenvector
 
-    # ---- left to right over bonds (i, i+1), i = 0..L-2 ----
-    GLs = torch.empty((L,) + tuple(GL0.shape), dtype=dtype, device=device)
-    GL = GL0
-    for i in range(L - 1):
-        GLs[i] = GL
-        W1, W2 = Ws[i], Ws[i + 1]
-        theta = torch.einsum("lpm,mqr->lpqr", AC, ARs[i + 1])
-        theta = solve(GL, W1, W2, GRs[i + 2], theta)
-        AL, S, AR, err = _split2(theta, supf[i], supf[i + 1], supf[i + 2],
-                                 trscheme)
-        errs.append(err)
-        GL = transfer_left_mpo(GL, W1, AL, AL)
-        AC = S[:, None, None] * AR
-        ALs[i] = AL
-    GLs[L - 1] = GL
+        # ---- left to right over bonds (i, i+1), i = 0..L-2 ----
+        GLs = torch.empty((L,) + tuple(GL0.shape), dtype=dtype, device=device)
+        GL = GL0
+        for i in range(L - 1):
+            GLs[i] = GL
+            W1, W2 = Ws[i], Ws[i + 1]
+            theta = torch.einsum("lpm,mqr->lpqr", AC, ARs[i + 1])
+            theta = solve(GL, W1, W2, GRs[i + 2], theta)
+            AL, S, AR, err = _split2(theta, supf[i], supf[i + 1], supf[i + 2],
+                                     trscheme)
+            errs.append(err)
+            GL = transfer_left_mpo(GL, W1, AL, AL)
+            AC = S[:, None, None] * AR
+            ALs[i] = AL
+        GLs[L - 1] = GL
 
-    # ---- right to left over bonds (i, i+1), i = L-2..0 ----
-    GR = GRL
-    for i in range(L - 2, -1, -1):
-        GRs[i + 2] = GR
-        W1, W2 = Ws[i], Ws[i + 1]
-        theta = torch.einsum("lpm,mqr->lpqr", ALs[i], AC)
-        theta = solve(GLs[i], W1, W2, GR, theta)
-        AL, S, AR, err = _split2(theta, supf[i], supf[i + 1], supf[i + 2],
-                                 trscheme)
-        errs.append(err)
-        GR = transfer_right_mpo(GR, W2, AR, AR)
-        AC = AL * S[None, None, :]
-        ARs[i + 1] = AR
-    # GRs[1] is the final carry; GRs[0] is unused and holds the same (as in
-    # the JAX package)
-    GRs[1] = GR
-    GRs[0] = GR
+        # ---- right to left over bonds (i, i+1), i = L-2..0 ----
+        GR = GRL
+        for i in range(L - 2, -1, -1):
+            GRs[i + 2] = GR
+            W1, W2 = Ws[i], Ws[i + 1]
+            theta = torch.einsum("lpm,mqr->lpqr", ALs[i], AC)
+            theta = solve(GLs[i], W1, W2, GR, theta)
+            AL, S, AR, err = _split2(theta, supf[i], supf[i + 1], supf[i + 2],
+                                     trscheme)
+            errs.append(err)
+            GR = transfer_right_mpo(GR, W2, AR, AR)
+            AC = AL * S[None, None, :]
+            ARs[i + 1] = AR
+        # GRs[1] is the final carry; GRs[0] is unused and holds the same (as in
+        # the JAX package)
+        GRs[1] = GR
+        GRs[0] = GR
 
-    diag = (sum(not c for c in convs), max(resids))
-    return ALs, ARs, AC, GRs, lams[-1], max(to_host(*errs)), diag
+        diag = (sum(not c for c in convs), max(resids))
+        return ALs, ARs, AC, GRs, lams[-1], max(to_host(*errs)), diag
 
 
 def find_groundstate_dmrg2(psi: FiniteMPS, H, alg: DMRG2 = DMRG2()):

@@ -49,6 +49,7 @@ from ..tensors.ops import (
 )
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.logging import logger
+from ..utils.trace import span
 from .derivatives import ac2_apply, ac_apply, c_apply
 
 @dataclasses.dataclass(frozen=True)
@@ -166,67 +167,68 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
     the support, which the in-sweep masking then deletes. split_dtype: the
     dtype of the QR / LQ, for charge masks in single precision (see
     `dmrg._dmrg_sweep_impl`)."""
-    L, D = ALs.shape[0], ALs.shape[1]
-    w = Ws.shape[1]
-    dtype, device = AC.dtype, AC.device
-    tau = -1j * (dt / 2)
-    mk = None if masks is None else masks.to(device=device, dtype=dtype)
-    errs = []
+    with span("step"):
+        L, D = ALs.shape[0], ALs.shape[1]
+        w = Ws.shape[1]
+        dtype, device = AC.dtype, AC.device
+        tau = -1j * (dt / 2)
+        mk = None if masks is None else masks.to(device=device, dtype=dtype)
+        errs = []
 
-    # ---- left to right: site i forward, then its right bond backward ----
-    ALs_new = torch.empty_like(ALs)
-    GL = left_boundary(w, D, dtype, device) if GL0 is None else GL0
-    GLs = torch.empty((L,) + tuple(GL.shape), dtype=dtype, device=device)
-    for i in range(L):
-        GLs[i] = GL
-        W, GR = Ws[i], GRs[i + 1]
-        AC, errA = expm_multiply_err(lambda x: ac_apply(GL, W, GR, x), AC,
-                                     tau, m)
-        if mk is not None:
-            AC = AC * mk[i]
-        AL, C = orth_in(leftorth, AC, split_dtype)
-        if mk is not None:
-            AL = AL * mk[i]
-        GL = transfer_left_mpo(GL, W, AL, AL)
-        ALs_new[i] = AL
-        if i == L - 1:
-            # the last site keeps AC = AL C: the final center tensor
-            AC = torch.einsum("lpm,mr->lpr", AL, C)
-            errs.append(errA)
-        else:
-            C, errC = expm_multiply_err(lambda x: c_apply(GL, GR, x), C,
-                                        -tau, m)
-            AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
-            errs.append(max(errA, errC))
+        # ---- left to right: site i forward, then its right bond backward ----
+        ALs_new = torch.empty_like(ALs)
+        GL = left_boundary(w, D, dtype, device) if GL0 is None else GL0
+        GLs = torch.empty((L,) + tuple(GL.shape), dtype=dtype, device=device)
+        for i in range(L):
+            GLs[i] = GL
+            W, GR = Ws[i], GRs[i + 1]
+            AC, errA = expm_multiply_err(lambda x: ac_apply(GL, W, GR, x), AC,
+                                         tau, m)
+            if mk is not None:
+                AC = AC * mk[i]
+            AL, C = orth_in(leftorth, AC, split_dtype)
+            if mk is not None:
+                AL = AL * mk[i]
+            GL = transfer_left_mpo(GL, W, AL, AL)
+            ALs_new[i] = AL
+            if i == L - 1:
+                # the last site keeps AC = AL C: the final center tensor
+                AC = torch.einsum("lpm,mr->lpr", AL, C)
+                errs.append(errA)
+            else:
+                C, errC = expm_multiply_err(lambda x: c_apply(GL, GR, x), C,
+                                            -tau, m)
+                AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
+                errs.append(max(errA, errC))
 
-    # ---- right to left: site i forward, then its left bond backward ----
-    # ARs[0] keeps its old value (the center ends at 0); GRs_new[i+1] is
-    # the environment right of site i and GRs_new[0] repeats GRs_new[1]
-    ARs_new = ARs.clone()
-    GRs_new = torch.empty_like(GRs)
-    GR = right_boundary(w, D, dtype, device) if GRL is None else GRL
-    for i in range(L - 1, -1, -1):
-        GRs_new[i + 1] = GR
-        GLi, W = GLs[i], Ws[i]
-        AC, errA = expm_multiply_err(lambda x: ac_apply(GLi, W, GR, x), AC,
-                                     tau, m)
-        if mk is not None:
-            AC = AC * mk[i]
-        C, AR = orth_in(rightorth, AC, split_dtype)
-        if mk is not None:
-            AR = AR * mk[i]
-        GR = transfer_right_mpo(GR, W, AR, AR)
-        if i == 0:
-            AC = torch.einsum("lm,mpr->lpr", C, AR)
-            errs.append(errA)
-        else:
-            ARs_new[i] = AR
-            C, errC = expm_multiply_err(lambda x: c_apply(GLi, GR, x), C,
-                                        -tau, m)
-            AC = torch.einsum("lpm,mr->lpr", ALs_new[i - 1], C)
-            errs.append(max(errA, errC))
-    GRs_new[0] = GRs_new[1]
-    return ALs_new, ARs_new, AC, GRs_new, max(errs)
+        # ---- right to left: site i forward, then its left bond backward ----
+        # ARs[0] keeps its old value (the center ends at 0); GRs_new[i+1] is
+        # the environment right of site i and GRs_new[0] repeats GRs_new[1]
+        ARs_new = ARs.clone()
+        GRs_new = torch.empty_like(GRs)
+        GR = right_boundary(w, D, dtype, device) if GRL is None else GRL
+        for i in range(L - 1, -1, -1):
+            GRs_new[i + 1] = GR
+            GLi, W = GLs[i], Ws[i]
+            AC, errA = expm_multiply_err(lambda x: ac_apply(GLi, W, GR, x), AC,
+                                         tau, m)
+            if mk is not None:
+                AC = AC * mk[i]
+            C, AR = orth_in(rightorth, AC, split_dtype)
+            if mk is not None:
+                AR = AR * mk[i]
+            GR = transfer_right_mpo(GR, W, AR, AR)
+            if i == 0:
+                AC = torch.einsum("lm,mpr->lpr", C, AR)
+                errs.append(errA)
+            else:
+                ARs_new[i] = AR
+                C, errC = expm_multiply_err(lambda x: c_apply(GLi, GR, x), C,
+                                            -tau, m)
+                AC = torch.einsum("lpm,mr->lpr", ALs_new[i - 1], C)
+                errs.append(max(errA, errC))
+        GRs_new[0] = GRs_new[1]
+        return ALs_new, ARs_new, AC, GRs_new, max(errs)
 
 
 def _materialize(H, t):

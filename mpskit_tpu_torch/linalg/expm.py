@@ -24,6 +24,7 @@ import torch
 from .arnoldi import arnoldi_factorize
 from .basis import basis_combine
 from .lanczos import _tridiag, lanczos_factorize
+from ..utils.trace import span
 from ..utils.tree import norm
 
 
@@ -41,15 +42,16 @@ def expm_multiply_err(matvec: Callable, v, tau, m: int = 30):
     """exp(tau*A) v with A Hermitian, and a relative Krylov truncation-error
     estimate |beta_last * coeff_last| (a host float): drivers keep the worst
     estimate of a step and warn when the Krylov dimension was too small."""
-    n0 = norm(v)
-    V, alpha, beta, nvalid = lanczos_factorize(matvec, v, m)
-    # sentinel 0 on the decoupled invalid block: e1 has no weight there
-    evals, evecs = np.linalg.eigh(_tridiag(alpha, beta, nvalid, 0.0))
-    coeff = evecs @ (np.exp(tau * evals) * evecs[0].conj())
-    y = _combine(V[:m], coeff)
-    last = min(max(nvalid - 1, 0), m - 1)
-    err = float(abs(beta[last]) * abs(coeff[last]))
-    return n0 * y, err
+    with span("expm"):
+        n0 = norm(v)
+        V, alpha, beta, nvalid = lanczos_factorize(matvec, v, m)
+        # sentinel 0 on the decoupled invalid block: e1 has no weight there
+        evals, evecs = np.linalg.eigh(_tridiag(alpha, beta, nvalid, 0.0))
+        coeff = evecs @ (np.exp(tau * evals) * evecs[0].conj())
+        y = _combine(V[:m], coeff)
+        last = min(max(nvalid - 1, 0), m - 1)
+        err = float(abs(beta[last]) * abs(coeff[last]))
+        return n0 * y, err
 
 
 def expm_multiply(matvec: Callable, v, tau, m: int = 30):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..utils.sync import to_host
+from ..utils.trace import span
 from ..utils.tree import add, inner, norm
 from .basis import basis_combine, basis_inner_all, basis_zeros
 
@@ -166,56 +167,58 @@ def eigsh_smallest(matvec: Callable, v0, m: int = 30, maxrestarts: int = 100,
     restart polishes; otherwise every restart is accurate. Past the
     mandated restarts the solve stops once a restart no longer halves the
     residual (stagnation exit)."""
-    if maxrestarts < 2:
-        matvec_fast = None  # no room for an accurate polish pass
-    if reorth == "local":
-        factorize = partial(lanczos_factorize_local, exit_tol=tol)
-    elif reorth == "local1":
-        factorize = partial(lanczos_factorize_local, corrective=False,
-                            exit_tol=tol)
-    elif reorth == "full":
-        def factorize(mv, v, m, w0=None, use_w0=False):
-            return lanczos_factorize(mv, v, m)
-    else:
-        raise ValueError(f"unknown reorth scheme {reorth!r}")
-
-    if matvec_fast is None:
-        x, lam, resid = v0, 0.0, float("inf")
-        min_restarts = 1
-    else:
-        # quality probe: one accurate matvec on the normalized start
-        x = v0 / torch.clamp(norm(v0), min=_BREAKDOWN)
-        w0 = matvec(x)
-        lam0 = inner(x, w0).real
-        lam, resid = to_host(lam0, norm(add(w0, x, alpha=-lam0)))
-        use_fast = resid > 3e-2 * max(abs(lam), 1e-30)
-        min_restarts = 0 if resid <= tol else (2 if use_fast else 1)
-
-    sentinel = _sentinel(v0.dtype)
-    prev_resid = float("inf")
-    it = 0
-    while it < maxrestarts and (
-            it < min_restarts
-            or (resid > tol and (matvec_fast is None
-                                 or resid < 0.5 * prev_resid))):
-        if matvec_fast is None:
-            V, alpha, beta, nvalid = factorize(matvec, x, m)
+    with span("eigsh"):
+        if maxrestarts < 2:
+            matvec_fast = None  # no room for an accurate polish pass
+        if reorth == "local":
+            factorize = partial(lanczos_factorize_local, exit_tol=tol)
+        elif reorth == "local1":
+            factorize = partial(lanczos_factorize_local, corrective=False,
+                                exit_tol=tol)
+        elif reorth == "full":
+            def factorize(mv, v, m, w0=None, use_w0=False):
+                return lanczos_factorize(mv, v, m)
         else:
-            # the probe's matvec(x) is step 0 of the first restart
-            mv = matvec_fast if (it == 0 and use_fast) else matvec
-            V, alpha, beta, nvalid = factorize(mv, x, m, w0=w0,
-                                               use_w0=(it == 0))
-        evals, evecs = np.linalg.eigh(_tridiag(alpha, beta, nvalid, sentinel))
-        s = evecs[:, 0]
-        x = basis_combine(V[:m], torch.as_tensor(s, device=V.device))
-        x = x / torch.clamp(norm(x), min=_BREAKDOWN)
-        # residual bound beta_last * |s_last| on the valid block; it also
-        # covers the tolerance-truncated factorizations (nvalid < m)
-        last = min(max(nvalid - 1, 0), m - 1)
-        prev_resid, resid = resid, float(abs(beta[last] * s[last]))
-        lam = float(evals[0])
-        it += 1
-    return EigshResult(lam, x, resid, it, resid <= tol)
+            raise ValueError(f"unknown reorth scheme {reorth!r}")
+
+        if matvec_fast is None:
+            x, lam, resid = v0, 0.0, float("inf")
+            min_restarts = 1
+        else:
+            # quality probe: one accurate matvec on the normalized start
+            x = v0 / torch.clamp(norm(v0), min=_BREAKDOWN)
+            w0 = matvec(x)
+            lam0 = inner(x, w0).real
+            lam, resid = to_host(lam0, norm(add(w0, x, alpha=-lam0)))
+            use_fast = resid > 3e-2 * max(abs(lam), 1e-30)
+            min_restarts = 0 if resid <= tol else (2 if use_fast else 1)
+
+        sentinel = _sentinel(v0.dtype)
+        prev_resid = float("inf")
+        it = 0
+        while it < maxrestarts and (
+                it < min_restarts
+                or (resid > tol and (matvec_fast is None
+                                     or resid < 0.5 * prev_resid))):
+            if matvec_fast is None:
+                V, alpha, beta, nvalid = factorize(matvec, x, m)
+            else:
+                # the probe's matvec(x) is step 0 of the first restart
+                mv = matvec_fast if (it == 0 and use_fast) else matvec
+                V, alpha, beta, nvalid = factorize(mv, x, m, w0=w0,
+                                                   use_w0=(it == 0))
+            evals, evecs = np.linalg.eigh(
+                _tridiag(alpha, beta, nvalid, sentinel))
+            s = evecs[:, 0]
+            x = basis_combine(V[:m], torch.as_tensor(s, device=V.device))
+            x = x / torch.clamp(norm(x), min=_BREAKDOWN)
+            # residual bound beta_last * |s_last| on the valid block; it also
+            # covers the tolerance-truncated factorizations (nvalid < m)
+            last = min(max(nvalid - 1, 0), m - 1)
+            prev_resid, resid = resid, float(abs(beta[last] * s[last]))
+            lam = float(evals[0])
+            it += 1
+        return EigshResult(lam, x, resid, it, resid <= tol)
 
 
 def tridiag_smallest(alpha, beta, nvalid: int, m: int):

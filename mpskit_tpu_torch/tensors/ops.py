@@ -20,24 +20,27 @@ from typing import Optional
 
 import torch
 
+from ..utils.trace import span
+
 
 def qr_pos(M):
     """Thin QR with the diagonal of R made real-positive (QRpos).
     Returns Q (..., m, k), R (..., k, n) with k = min(m, n); leading axes
     are a batch (each matrix gets its own phases)."""
-    Q, R = torch.linalg.qr(M, mode="reduced")
-    d = torch.diagonal(R, dim1=-2, dim2=-1)
-    ad = d.abs()
-    # the |d| > 1e-30 guard keeps zero pivots (the padded, rank-deficient
-    # edge panels) at phase 1 instead of 0/0
-    phase = torch.where(ad > 1e-30, d / torch.clamp(ad, min=1e-30),
-                        torch.ones_like(d))
-    return Q * phase.unsqueeze(-2), R * phase.conj().unsqueeze(-1)
+    with span("qr"):
+        Q, R = torch.linalg.qr(M, mode="reduced")
+        d = torch.diagonal(R, dim1=-2, dim2=-1)
+        ad = d.abs()
+        # the |d| > 1e-30 guard keeps zero pivots (the padded,
+        # rank-deficient edge panels) at phase 1 instead of 0/0
+        phase = torch.where(ad > 1e-30, d / torch.clamp(ad, min=1e-30),
+                            torch.ones_like(d))
+        return Q * phase.unsqueeze(-2), R * phase.conj().unsqueeze(-1)
 
 
 def lq_pos(M):
     """Thin LQ with the diagonal of L real-positive: M = L @ Q (batched
-    like qr_pos)."""
+    like qr_pos, whose `qr` span it is: the adjoints are views)."""
     Qh, Rh = qr_pos(M.mT.conj())
     return Rh.mT.conj(), Qh.mT.conj()
 
@@ -50,15 +53,16 @@ def cholesky_qr2(M, jitter: float = None):
     if jitter is None:
         single = M.dtype in (torch.float32, torch.complex64)
         jitter = 3e-5 if single else 1e-12
-    eps = jitter * torch.linalg.vector_norm(M) ** 2
-    eye = torch.eye(n, dtype=M.dtype, device=M.device)
-    G = M.mT.conj() @ M + eps * eye
-    R1 = torch.linalg.cholesky(G, upper=True)
-    Q1 = torch.linalg.solve_triangular(R1, M, upper=True, left=False)
-    G2 = Q1.mT.conj() @ Q1 + jitter * eye
-    R2 = torch.linalg.cholesky(G2, upper=True)
-    Q = torch.linalg.solve_triangular(R2, Q1, upper=True, left=False)
-    return Q, R2 @ R1
+    with span("qr"):
+        eps = jitter * torch.linalg.vector_norm(M) ** 2
+        eye = torch.eye(n, dtype=M.dtype, device=M.device)
+        G = M.mT.conj() @ M + eps * eye
+        R1 = torch.linalg.cholesky(G, upper=True)
+        Q1 = torch.linalg.solve_triangular(R1, M, upper=True, left=False)
+        G2 = Q1.mT.conj() @ Q1 + jitter * eye
+        R2 = torch.linalg.cholesky(G2, upper=True)
+        Q = torch.linalg.solve_triangular(R2, Q1, upper=True, left=False)
+        return Q, R2 @ R1
 
 
 def leftorth_hybrid(A, full_rank: bool):
@@ -166,38 +170,39 @@ def svd_truncated(M, Dmax: int, trunc: TruncationScheme = TruncationScheme()):
     an H100 it left the float32 vectors of a 768 x 768 two-site matrix
     7.9e-4 from orthonormal (`chip_smoke.py`'s `[svd]` lines) and put a
     float32 DMRG2 energy 4.7e-3 below the float64 one (PERF.md)."""
-    U, S, Vh = torch.linalg.svd(M, full_matrices=False,
-                                driver="gesvd" if M.is_cuda else None)
-    k = S.shape[0]
-    if k >= Dmax:
-        U, Vh = U[:, :Dmax], Vh[:Dmax]
-        discarded_sq = torch.sum(S[Dmax:] ** 2)
-        S = S[:Dmax]
-    else:
-        U = torch.nn.functional.pad(U, (0, Dmax - k))
-        Vh = torch.nn.functional.pad(Vh, (0, 0, 0, Dmax - k))
-        S = torch.nn.functional.pad(S, (0, Dmax - k))
-        discarded_sq = torch.zeros((), dtype=S.dtype, device=S.device)
+    with span("svd"):
+        U, S, Vh = torch.linalg.svd(M, full_matrices=False,
+                                    driver="gesvd" if M.is_cuda else None)
+        k = S.shape[0]
+        if k >= Dmax:
+            U, Vh = U[:, :Dmax], Vh[:Dmax]
+            discarded_sq = torch.sum(S[Dmax:] ** 2)
+            S = S[:Dmax]
+        else:
+            U = torch.nn.functional.pad(U, (0, Dmax - k))
+            Vh = torch.nn.functional.pad(Vh, (0, 0, 0, Dmax - k))
+            S = torch.nn.functional.pad(S, (0, Dmax - k))
+            discarded_sq = torch.zeros((), dtype=S.dtype, device=S.device)
 
-    keep = torch.ones(Dmax, dtype=torch.bool, device=S.device)
-    if trunc.dim is not None and trunc.dim < Dmax:
-        keep[trunc.dim:] = False
-    if trunc.below is not None:
-        keep = keep & (S > trunc.below)
-    sq = S ** 2
-    total = torch.sum(sq) + discarded_sq
-    if trunc.err is not None:
-        # tail[i] = sum_{j >= i} S[j]^2 on the descending S: drop the
-        # smallest values while the discarded weight stays below err^2
-        tail = torch.flip(torch.cumsum(torch.flip(sq, (0,)), 0), (0,))
-        keep = keep & ((tail + discarded_sq) > trunc.err ** 2 * total)
+        keep = torch.ones(Dmax, dtype=torch.bool, device=S.device)
+        if trunc.dim is not None and trunc.dim < Dmax:
+            keep[trunc.dim:] = False
+        if trunc.below is not None:
+            keep = keep & (S > trunc.below)
+        sq = S ** 2
+        total = torch.sum(sq) + discarded_sq
+        if trunc.err is not None:
+            # tail[i] = sum_{j >= i} S[j]^2 on the descending S: drop the
+            # smallest values while the discarded weight stays below err^2
+            tail = torch.flip(torch.cumsum(torch.flip(sq, (0,)), 0), (0,))
+            keep = keep & ((tail + discarded_sq) > trunc.err ** 2 * total)
 
-    maskf = keep.to(S.dtype)
-    disc = discarded_sq + torch.sum(sq * (1.0 - maskf))
-    err = torch.sqrt(torch.clamp(disc, min=0.0)
-                     / torch.clamp(total, min=1e-30))
-    return (U * maskf.to(U.dtype), S * maskf,
-            Vh * maskf[:, None].to(Vh.dtype), err)
+        maskf = keep.to(S.dtype)
+        disc = discarded_sq + torch.sum(sq * (1.0 - maskf))
+        err = torch.sqrt(torch.clamp(disc, min=0.0)
+                         / torch.clamp(total, min=1e-30))
+        return (U * maskf.to(U.dtype), S * maskf,
+                Vh * maskf[:, None].to(Vh.dtype), err)
 
 
 def isometry(m: int, n: int, dtype=torch.complex128, device="cuda"):

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.trace import span
+
 
 def transfer_left(v, A_ket, A_bra):
     """v[l_bra, l_ket] -> v'[m_bra, m_ket] through one site."""
@@ -25,16 +27,18 @@ def transfer_right(v, A_ket, A_bra):
 
 def transfer_left_mpo(GL, W, A_ket, A_bra):
     """GL (w, D, D) -> (w', D, D) through site tensors and W (w, w', d, d)."""
-    t = torch.einsum("axy,ytn->axtn", GL, A_ket)        # w d D^3
-    t = torch.einsum("axtn,abst->bxsn", t, W)           # w^2 d^2 D^2
-    return torch.einsum("xsm,bxsn->bmn", A_bra.conj(), t)  # w d D^3
+    with span("push"):
+        t = torch.einsum("axy,ytn->axtn", GL, A_ket)        # w d D^3
+        t = torch.einsum("axtn,abst->bxsn", t, W)           # w^2 d^2 D^2
+        return torch.einsum("xsm,bxsn->bmn", A_bra.conj(), t)  # w d D^3
 
 
 def transfer_right_mpo(GR, W, A_ket, A_bra):
     """GR (w', D, D) -> (w, D, D) through site tensors and W (w, w', d, d)."""
-    t = torch.einsum("ytn,bmn->bytm", A_ket, GR)
-    t = torch.einsum("bytm,abst->aysm", t, W)
-    return torch.einsum("xsm,aysm->axy", A_bra.conj(), t)
+    with span("push"):
+        t = torch.einsum("ytn,bmn->bytm", A_ket, GR)
+        t = torch.einsum("bytm,abst->aysm", t, W)
+        return torch.einsum("xsm,aysm->axy", A_bra.conj(), t)
 
 
 def mps_transfer_matvec_left(As_ket, As_bra):

@@ -1,0 +1,125 @@
+"""Spans: named, nested wall-clock intervals of the port's layers, kept in
+memory only while a recording is open.
+
+    from mpskit_tpu_torch.utils import trace
+
+    with trace.recording() as rec:
+        find_groundstate(psi, H, DMRG())
+    rec.spans    # Span(name, id, parent, t0_ns, t1_ns, kind), as they close
+    rec.counts   # Counter of the spans by name
+
+Each span sits inside the function whose work it measures:
+
+    sweep   algorithms/dmrg.py, dmrg2.py: one sweep
+    step    algorithms/tdvp.py: one finite TDVP step
+    eigsh   linalg/lanczos.py::eigsh_smallest
+    expm    linalg/expm.py::expm_multiply_err
+    matvec  algorithms/derivatives.py, `kind` exact, bf16 (K1), zero-site
+            or two-site
+    svd     tensors/ops.py::svd_truncated
+    qr      tensors/ops.py::qr_pos (an LQ is qr_pos of the adjoint) and
+            cholesky_qr2
+    push    transfermatrix/transfer.py: an MPO environment push
+    sync    utils/sync.py: a counted device-to-host read
+
+The program's counters are plain module integers beside the code they
+count: `utils.sync.count` (host syncs), `kernels.ac_apply.launches`
+(launches of kernel K1) and `parallel.split.collectives` (the mesh's
+collectives). Spans say where the wall time went, which counters cannot.
+
+A span's parent is the innermost span open when it opens; a span closes
+when an exception passes through it. The times are nanoseconds on the
+Unix-epoch clock on which torch.profiler stamps its events
+(`time.perf_counter_ns()` plus one offset read when the recording
+opens), so that spans can be laid on a device trace of the same process.
+One recording is open at a time, from one thread.
+
+With no recording open, `span` checks one module variable and returns a
+shared no-op context: no allocation and no clock read."""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import time
+from typing import NamedTuple, Optional
+
+
+class Span(NamedTuple):
+    name: str
+    id: int
+    parent: Optional[int]   # the id of the enclosing span, None at the root
+    t0_ns: int
+    t1_ns: int
+    kind: Optional[str] = None
+
+
+_NULL = contextlib.nullcontext()
+_open = None  # the open recording, or None
+
+
+def span(name: str, kind: Optional[str] = None):
+    """A context that records one span while a recording is open."""
+    if _open is None:
+        return _NULL
+    return _Timed(_open, name, kind)
+
+
+class _Timed:
+    __slots__ = ("rec", "name", "kind", "id", "parent", "t0")
+
+    def __init__(self, rec, name, kind):
+        self.rec, self.name, self.kind = rec, name, kind
+
+    def __enter__(self):
+        rec = self.rec
+        self.id = rec._next
+        rec._next += 1
+        self.parent = rec._stack[-1] if rec._stack else None
+        rec._stack.append(self.id)
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        rec = self.rec
+        rec._stack.pop()
+        rec.spans.append(Span(self.name, self.id, self.parent,
+                              self.t0 + rec.offset_ns, t1 + rec.offset_ns,
+                              self.kind))
+        rec.counts[self.name] += 1
+        return False
+
+
+class recording:
+    """The spans of the code run while it is open: `with recording() as
+    rec:` (a context manager class, lower-case as contextlib's are)."""
+
+    def __init__(self):
+        self.spans = []
+        self.counts = collections.Counter()
+        self._stack = []
+        self._next = 0
+        self.offset_ns = 0
+
+    def now_ns(self) -> int:
+        """The present time on the spans' clock."""
+        return time.perf_counter_ns() + self.offset_ns
+
+    def __enter__(self):
+        global _open
+        if _open is not None:
+            raise RuntimeError("a recording is open already")
+        self.offset_ns = time.time_ns() - time.perf_counter_ns()
+        _open = self
+        return self
+
+    def close(self) -> None:
+        """Stop recording (a no-op once stopped)."""
+        global _open
+        if _open is self:
+            _open = None
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+

@@ -1,0 +1,254 @@
+"""The port's spans (mpskit_tpu_torch/utils/trace.py): what a recording
+holds after a tiny DMRG, DMRG2 or TDVP run on the CPU, how the spans nest,
+that they agree with the program's counters and with torch.profiler's
+clock, and that recording changes no result. One test needs a CUDA card
+(marker `cuda`) and skips without one. The file imports no jax."""
+
+import collections
+import time
+
+import pytest
+import torch
+
+import mpskit_tpu_torch as mt
+from mpskit_tpu_torch.algorithms import dmrg, dmrg2, tdvp
+from mpskit_tpu_torch.linalg.lanczos import eigsh_smallest
+from mpskit_tpu_torch.utils import sync, trace
+
+L, D, M = 6, 12, 8
+SLACK_NS = 50_000
+
+
+def _start(dtype=torch.float64, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return mt.FiniteMPS.random(L, 2, D, dtype, "cpu", gen)
+
+
+def _hamiltonian(g=1.5):
+    return mt.transverse_field_ising_lattice(g=g)
+
+
+def _dmrg():
+    return mt.find_groundstate(_start(), _hamiltonian(),
+                               mt.DMRG(maxiter=1, verbosity=0))
+
+
+def _dmrg2():
+    return mt.find_groundstate(
+        _start(), _hamiltonian(),
+        mt.DMRG2(maxiter=1, trscheme=mt.truncdim(D), verbosity=0))
+
+
+def _complex_start():
+    psi = _start()
+    c = torch.complex128
+    return mt.FiniteMPS(psi.ALs.to(c), psi.ARs.to(c), psi.AC.to(c),
+                        psi.center)
+
+
+def _tdvp():
+    return mt.timestep(_complex_start(), _hamiltonian(0.5), 0.0, 0.05,
+                       mt.TDVP(expalg_m=M))
+
+
+RUNS = {"dmrg": _dmrg, "dmrg2": _dmrg2, "tdvp": _tdvp}
+# the module attributes through which each algorithm calls its matvecs
+MATVECS = {
+    "dmrg": [(dmrg, "ac_apply"), (dmrg, "ac_apply_fast")],
+    "dmrg2": [(dmrg2, "ac2_apply")],
+    "tdvp": [(tdvp, "ac_apply"), (tdvp, "c_apply")],
+}
+
+
+def _recorded(run):
+    with trace.recording() as rec:
+        out = run()
+    return rec, out
+
+
+def _by_id(rec):
+    return {s.id: s for s in rec.spans}
+
+
+def _children(rec, parent_name):
+    """Counter of (parent id, child name) under the spans named
+    parent_name."""
+    by = _by_id(rec)
+    return collections.Counter(
+        (s.parent, s.name) for s in rec.spans
+        if s.parent is not None and by[s.parent].name == parent_name)
+
+
+def test_nothing_recorded_without_a_recording():
+    """With no recording open a span is one shared no-op context, and a
+    run leaves nothing in a recording opened after it."""
+    assert trace._open is None
+    assert trace.span("sweep") is trace.span("matvec", "exact")
+    _dmrg()
+    with trace.recording() as rec:
+        pass
+    assert rec.spans == [] and not rec.counts
+    assert trace._open is None
+
+
+def test_one_recording_at_a_time():
+    with trace.recording():
+        with pytest.raises(RuntimeError):
+            trace.recording().__enter__()
+    assert trace._open is None
+
+
+def test_dmrg_sweep_nests_eigsh_matvec_sync():
+    rec, _ = _recorded(_dmrg)
+    by = _by_id(rec)
+    assert len(by) == len(rec.spans)
+    sweeps = [s for s in rec.spans if s.name == "sweep"]
+    assert len(sweeps) == 1 and sweeps[0].parent is None
+    eigsh = [s for s in rec.spans if s.name == "eigsh"]
+    assert len(eigsh) == 2 * (L - 1)
+    assert all(s.parent == sweeps[0].id for s in eigsh)
+    under = _children(rec, "eigsh")
+    for s in eigsh:
+        assert under[(s.id, "matvec")] >= 1
+        assert under[(s.id, "sync")] >= 1
+    for s in rec.spans:
+        if s.parent is not None:
+            p = by[s.parent]
+            assert p.t0_ns <= s.t0_ns <= s.t1_ns <= p.t1_ns
+            assert p.id < s.id
+    kinds = {s.kind for s in rec.spans if s.name == "matvec"}
+    assert kinds == {"exact"}
+    under = _children(rec, "sweep")
+    # one gauge move and one environment push per site solve
+    assert under[(sweeps[0].id, "qr")] == 2 * (L - 1)
+    assert under[(sweeps[0].id, "push")] == 2 * (L - 1)
+
+
+def test_dmrg2_sweep_has_svd_spans():
+    rec, _ = _recorded(_dmrg2)
+    by = _by_id(rec)
+    svd = [s for s in rec.spans if s.name == "svd"]
+    assert len(svd) == 2 * (L - 1)
+    assert all(by[s.parent].name == "sweep" for s in svd)
+    assert {s.kind for s in rec.spans if s.name == "matvec"} == {"two-site"}
+
+
+def test_tdvp_step_nests_expm_with_m_matvecs():
+    rec, _ = _recorded(_tdvp)
+    steps = [s for s in rec.spans if s.name == "step"]
+    assert len(steps) == 1 and steps[0].parent is None
+    expm = [s for s in rec.spans if s.name == "expm"]
+    # L site exponentials and L - 1 bond exponentials each way
+    assert len(expm) == 2 * (2 * L - 1)
+    assert all(s.parent == steps[0].id for s in expm)
+    under = _children(rec, "expm")
+    assert all(under[(s.id, "matvec")] == M for s in expm)
+    assert rec.counts["matvec"] == M * len(expm)
+    assert {s.kind for s in rec.spans if s.name == "matvec"} == {
+        "exact", "zero-site"}
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_sync_spans_equal_the_sync_counter(name):
+    before = sync.count
+    rec, _ = _recorded(RUNS[name])
+    assert rec.counts["sync"] == sync.count - before > 0
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_matvec_spans_equal_the_calls_a_wrapper_counts(name, monkeypatch):
+    calls = collections.Counter()
+    for mod, attr in MATVECS[name]:
+        fn = getattr(mod, attr)
+
+        def counted(*args, _fn=fn, _attr=attr):
+            calls[_attr] += 1
+            return _fn(*args)
+
+        monkeypatch.setattr(mod, attr, counted)
+    rec, _ = _recorded(RUNS[name])
+    assert rec.counts["matvec"] == sum(calls.values()) > 0
+
+
+def test_span_closes_when_an_exception_passes():
+    with trace.recording() as rec:
+        with pytest.raises(ValueError):
+            with trace.span("outer"):
+                with trace.span("inner"):
+                    raise ValueError
+        calls = []
+
+        def failing(x):
+            calls.append(1)
+            if len(calls) == 3:
+                raise FloatingPointError
+            return 2.0 * x
+
+        with pytest.raises(FloatingPointError):
+            eigsh_smallest(failing, torch.ones(5, dtype=torch.float64), 4)
+        with trace.span("after"):
+            pass
+    names = [s.name for s in rec.spans]
+    assert names == ["inner", "outer", "eigsh", "after"]
+    by = _by_id(rec)
+    assert by[rec.spans[0].parent].name == "outer"
+    assert rec.spans[-1].parent is None and rec._stack == []
+
+
+@pytest.mark.parametrize("name", sorted(RUNS))
+def test_results_equal_with_recording_on_and_off(name):
+    off = RUNS[name]()
+    _, on = _recorded(RUNS[name])
+    a, b = off[0], on[0]
+    for x, y in ((a.ALs, b.ALs), (a.ARs, b.ARs), (a.AC, b.AC)):
+        assert torch.equal(x, y)
+
+
+def test_spans_lie_on_the_profilers_clock():
+    """A record_function range opened inside a span lies within the
+    span's interval, up to SLACK_NS at each end."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    x = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with trace.recording() as rec:
+            for i in range(5):
+                with trace.span("outer"):
+                    with record_function(f"inner{i}"):
+                        x @ x
+                time.sleep(1e-3)
+    ranges = {e.name(): (e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.name().startswith("inner")}
+    assert len(ranges) == len(rec.spans) == 5
+    for i, s in enumerate(rec.spans):
+        a, b = ranges[f"inner{i}"]
+        assert s.t0_ns - SLACK_NS <= a <= b <= s.t1_ns + SLACK_NS
+
+
+@pytest.mark.cuda
+def test_span_contains_its_kernel_on_the_card():
+    """A span around a sleeping kernel and a synchronize contains the
+    kernel's device interval from torch.profiler, up to SLACK_NS."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with trace.recording() as rec:
+            for _ in range(5):
+                with trace.span("wait"):
+                    torch.cuda._sleep(2_000_000)
+                    torch.cuda.synchronize()
+    # the sleeping kernel (ATen's spin_kernel) is the only device operation
+    # of the profile that lasts 0.1 ms or more
+    kernels = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+        and e.duration_ns() >= 100_000)
+    assert len(kernels) == len(rec.spans) == 5
+    for (a, b), s in zip(kernels, rec.spans):
+        assert s.t0_ns - SLACK_NS <= a <= b <= s.t1_ns + SLACK_NS
