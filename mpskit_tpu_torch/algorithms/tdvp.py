@@ -11,7 +11,10 @@ outputs with `jnp.roll` and `.at[].set`, and skips the edge bond with a
 straight to its seat in a fresh stack, and the edge tests are host `if`s:
 the caller's tensors are never written. Every exponential is one Lanczos
 factorization with one host read (`linalg/expm.py`); the Krylov error
-estimates are host floats, so a step makes one sync per exponential.
+estimates are host floats, so a step makes one sync per exponential. The
+finite step hands its exponentials `Bound` matvecs, so that on the card
+each factorization is one CUDA graph replay (`linalg/graphs.py`): its
+shapes are the padded static D, five graphs (operand layouts) a step.
 
 The evolution runs in the state's complex dtype (complex64 or complex128);
 a real state raises TypeError. The integrator is Krylov exp(-i dt H_eff).
@@ -30,6 +33,7 @@ from ..environments.finite import (
 )
 from ..environments.infinite_ham import hamiltonian_environments
 from ..linalg.expm import expm_multiply_err
+from ..linalg.graphs import Bound
 from ..operators.lazysum import LazySum, MultipliedOperator
 from ..operators.mpo import MPOHamiltonian
 from ..operators.window import Window
@@ -182,7 +186,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
         for i in range(L):
             GLs[i] = GL
             W, GR = Ws[i], GRs[i + 1]
-            AC, errA = expm_multiply_err(lambda x: ac_apply(GL, W, GR, x), AC,
+            AC, errA = expm_multiply_err(Bound(ac_apply, GL, W, GR), AC,
                                          tau, m)
             if mk is not None:
                 AC = AC * mk[i]
@@ -196,7 +200,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
                 AC = torch.einsum("lpm,mr->lpr", AL, C)
                 errs.append(errA)
             else:
-                C, errC = expm_multiply_err(lambda x: c_apply(GL, GR, x), C,
+                C, errC = expm_multiply_err(Bound(c_apply, GL, GR), C,
                                             -tau, m)
                 AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
                 errs.append(max(errA, errC))
@@ -210,7 +214,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
         for i in range(L - 1, -1, -1):
             GRs_new[i + 1] = GR
             GLi, W = GLs[i], Ws[i]
-            AC, errA = expm_multiply_err(lambda x: ac_apply(GLi, W, GR, x), AC,
+            AC, errA = expm_multiply_err(Bound(ac_apply, GLi, W, GR), AC,
                                          tau, m)
             if mk is not None:
                 AC = AC * mk[i]
@@ -223,7 +227,7 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
                 errs.append(errA)
             else:
                 ARs_new[i] = AR
-                C, errC = expm_multiply_err(lambda x: c_apply(GLi, GR, x), C,
+                C, errC = expm_multiply_err(Bound(c_apply, GLi, GR), C,
                                             -tau, m)
                 AC = torch.einsum("lpm,mr->lpr", ALs_new[i - 1], C)
                 errs.append(max(errA, errC))

@@ -11,7 +11,9 @@ host, once, so the small problem is solved there in float64 / complex128:
 the `eigh` of the tridiagonal, exp(tau * evals) and Saad's error estimate,
 or a Pade `expm` of the Hessenberg matrix. Only the m coefficients of the
 result travel back to the device. An exponential thus costs one host sync,
-and its error estimate (a host float) none.
+and its error estimate (a host float) none. A `graphs.Bound` matvec on
+the card runs the factorization as one CUDA graph replay
+(`linalg/lanczos.py`).
 """
 
 from __future__ import annotations

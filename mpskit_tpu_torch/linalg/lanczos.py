@@ -6,7 +6,10 @@ The JAX package runs every loop of this module on the device
 are host loops and each data-dependent exit reads device scalars through
 `utils.sync.to_host`: one read per Lanczos step (its alpha and beta
 together), one per convergence probe, one per full-reorthogonalization
-factorization. The m x m tridiagonal Ritz problem is solved explicitly on
+factorization. A full factorization of a `graphs.Bound` matvec on the
+card runs as one CUDA graph per shape and layout (`linalg/graphs.py`):
+its m steps hold no read, so the whole of it is captured once and
+replayed. The m x m tridiagonal Ritz problem is solved explicitly on
 the host, in float64 numpy, from those same alpha/beta values: they are
 on the host already for the exit tests, so this costs no further sync,
 and only the m Ritz coefficients travel back to the device.
@@ -20,9 +23,10 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..utils.sync import to_host
-from ..utils.trace import span
+from ..utils.sync import to_host, to_host_array
+from ..utils.trace import count, span
 from ..utils.tree import add, inner, norm
+from . import graphs
 from .basis import basis_combine, basis_inner_all, basis_zeros
 
 _BREAKDOWN = 1e-14
@@ -61,13 +65,9 @@ def _breakdown(alpha, beta, dtype) -> float:
     return max(_BREAKDOWN, 10 * float(torch.finfo(torch.float32).eps) * scale)
 
 
-def lanczos_factorize(matvec: Callable, v0, m: int):
-    """m Lanczos steps from v0 with two-pass classical Gram-Schmidt against
-    the whole (m + 1)-slot stacked basis.
-
-    Returns (V, alpha, beta, nvalid): V the device basis, alpha and beta
-    float64 numpy arrays of length m (beta[j] connects j and j+1), nvalid
-    the steps before breakdown."""
+def _factorize_steps(matvec: Callable, v0, m: int):
+    """The device work of `lanczos_factorize`: (V, alpha, beta), alpha and
+    beta lists of m 0-dim device tensors. No host read."""
     v = v0 / torch.clamp(norm(v0), min=_BREAKDOWN)
     V = basis_zeros(v, m + 1)
     V[0] = v
@@ -82,7 +82,42 @@ def lanczos_factorize(matvec: Callable, v0, m: int):
         a_dev.append((c1[j] + c2[j]).real)
         b_dev.append(b)
         V[j + 1] = _normalized_or_zero(w, b)
-    ab = np.asarray(to_host(*a_dev, *b_dev), np.float64)
+    return V, a_dev, b_dev
+
+
+def _factorize_replayed(matvec: graphs.Bound, v0, m: int):
+    """`_factorize_steps` as one CUDA graph per key: (V, alpha and beta as
+    one device vector of 2m), both the graph's static tensors. The key
+    holds the TF32 flag because the graph keeps the kernels chosen under
+    the precision in force at its capture."""
+    def body(*xs):
+        V, a_dev, b_dev = _factorize_steps(graphs.Bound(matvec.fn, *xs[:-1]),
+                                           xs[-1], m)
+        return V, torch.stack(a_dev + b_dev)
+
+    key = (matvec.fn, m, torch.backends.cuda.matmul.allow_tf32,
+           graphs.signature(*matvec.operands, v0))
+    V, ab = graphs.replayed(key, body, (*matvec.operands, v0), "lanczos")
+    count("matvec", m)
+    return V, ab
+
+
+def lanczos_factorize(matvec: Callable, v0, m: int):
+    """m Lanczos steps from v0 with two-pass classical Gram-Schmidt against
+    the whole (m + 1)-slot stacked basis.
+
+    Returns (V, alpha, beta, nvalid): V the device basis, alpha and beta
+    float64 numpy arrays of length m (beta[j] connects j and j+1), nvalid
+    the steps before breakdown. A `graphs.Bound` matvec on plain CUDA
+    tensors runs the steps as a CUDA graph: V is then the graph's static
+    buffer, valid until the next factorization of the same key (shapes
+    and layouts)."""
+    if graphs.capturable(matvec, v0):
+        V, ab = _factorize_replayed(matvec, v0, m)
+        ab = np.asarray(to_host_array(ab), np.float64)
+    else:
+        V, a_dev, b_dev = _factorize_steps(matvec, v0, m)
+        ab = np.asarray(to_host(*a_dev, *b_dev), np.float64)
     alpha, beta = ab[:m], ab[m:]
     return V, alpha, beta, _nvalid(beta, _breakdown(alpha, beta, V.dtype))
 

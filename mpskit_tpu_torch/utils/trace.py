@@ -21,11 +21,19 @@ Each span sits inside the function whose work it measures:
             cholesky_qr2
     push    transfermatrix/transfer.py: an MPO environment push
     sync    utils/sync.py: a counted device-to-host read
+    capture linalg/graphs.py: a CUDA graph's warm-up and capture (nothing
+            is recorded inside it), `kind` lanczos
+    replay  linalg/graphs.py: the copies into a graph and its replay
+
+A replayed graph runs no Python, so the spans of its work are counted
+instead: `count(name, n)` adds n to `rec.counts[name]` with no span
+(`linalg/lanczos.py` counts a replayed factorization's m matvecs).
 
 The program's counters are plain module integers beside the code they
 count: `utils.sync.count` (host syncs), `kernels.ac_apply.launches`
-(launches of kernel K1) and `parallel.split.collectives` (the mesh's
-collectives). Spans say where the wall time went, which counters cannot.
+(launches of kernel K1), `linalg.graphs.captures` and `.replays` and
+`parallel.split.collectives` (the mesh's collectives). Spans say where
+the wall time went, which counters cannot.
 
 A span's parent is the innermost span open when it opens; a span closes
 when an exception passes through it. The times are nanoseconds on the
@@ -35,7 +43,8 @@ opens), so that spans can be laid on a device trace of the same process.
 One recording is open at a time, from one thread.
 
 With no recording open, `span` checks one module variable and returns a
-shared no-op context: no allocation and no clock read."""
+shared no-op context, and `count` returns: no allocation and no clock
+read."""
 
 from __future__ import annotations
 
@@ -63,6 +72,24 @@ def span(name: str, kind: Optional[str] = None):
     if _open is None:
         return _NULL
     return _Timed(_open, name, kind)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the open recording's count of `name`, with no span."""
+    if _open is not None:
+        _open.counts[name] += n
+
+
+@contextlib.contextmanager
+def paused():
+    """Record nothing while open, for work that does not stand for itself
+    (a CUDA graph's warm-up and capture)."""
+    global _open
+    rec, _open = _open, None
+    try:
+        yield
+    finally:
+        _open = rec
 
 
 class _Timed:
