@@ -28,15 +28,15 @@ def ac_apply_fast(GL, W, GR, x):
     Dispatch by device and dtype, as the JAX docstring defines it: a
     float32 tensor on the card goes through the bf16 kernel K1 (bf16
     operands, f32 accumulation, ~3e-3 relative error), which launches or
-    raises. On the CPU, and for float64 or complex tensors, the fast and
-    the exact matvec coincide and this is `ac_apply` (and its span)."""
+    raises; the kernel's wrapper opens the span, its kind naming K1's path.
+    On the CPU, and for float64 or complex tensors, the fast and the exact
+    matvec coincide and this is `ac_apply` (and its span)."""
     if x.is_cuda and x.dtype == torch.float32:
         # the kernel takes contiguous operands; einsum outputs (the
         # environment carried through a sweep, the center tensor) may be
         # permuted views, and a copy costs ~1e-3 of a matvec
-        with span("matvec", "bf16"):
-            return ac_apply_bf16(GL.contiguous(), W.contiguous(),
-                                 GR.contiguous(), x.contiguous())
+        return ac_apply_bf16(GL.contiguous(), W.contiguous(),
+                             GR.contiguous(), x.contiguous())
     return ac_apply(GL, W, GR, x)
 
 

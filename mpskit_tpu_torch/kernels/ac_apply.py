@@ -2,8 +2,10 @@
 (csrc/ac_apply_bf16.cu), its wrapper and its plain PyTorch version.
 
 `launches` counts the wrapper's calls that launched the kernel (one per
-call, however many passes run inside); a run can reset it and read it to
-show that its main path went through the kernel."""
+call, however many passes run inside), and `general_launches` those of
+them that took the kernel's general path (`k1_general`: every (w, d)
+outside the fused tiers, `fused`); a run can reset them and read them to
+show that its main path went through the kernel and which path."""
 
 from __future__ import annotations
 
@@ -13,9 +15,11 @@ import functools
 import torch
 
 from ..parallel.replicated import is_sharded
+from ..utils.trace import span
 from .build import load_library
 
 launches = 0
+general_launches = 0
 
 def ac_apply_bf16_reference(GL, W, GR, x):
     """Plain PyTorch version of K1 with the kernel's rounding points: GL, x
@@ -38,6 +42,8 @@ def _library():
     lib.ac_apply_bf16.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_size_t]
                                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.ac_apply_bf16.restype = ctypes.c_int
+    lib.ac_apply_bf16_fused.argtypes = [ctypes.c_int] * 2
+    lib.ac_apply_bf16_fused.restype = ctypes.c_int
     return lib
 
 
@@ -46,6 +52,14 @@ def _scratch_bytes(w: int, d: int, D: int) -> int:
     """Bytes of device scratch that one launch at (w, d, D) needs; the CUDA
     source lays the buffers out and picks the kernel's path."""
     return _library().ac_apply_bf16_scratch_bytes(w, d, D)
+
+
+@functools.cache
+def fused(w: int, d: int) -> bool:
+    """Whether K1 runs (w, d) on one of its fused tiers (the CUDA source's
+    K1_TIERS) rather than on `k1_general`; asked of the library once per
+    (w, d)."""
+    return bool(_library().ac_apply_bf16_fused(w, d))
 
 
 def _check(GL, W, GR, x):
@@ -74,16 +88,20 @@ def ac_apply_bf16(GL, W, GR, x):
 
     On the CPU this is the plain version; on the card it launches K1 on the
     current stream or raises. A DTensor raises TypeError: its data_ptr() is
-    a wrapper's, not the shard's (pass the gathered or local tensor)."""
-    global launches
+    a wrapper's, not the shard's (pass the gathered or local tensor).
+    A launch is a `matvec` span of kind bf16 on K1's fused tiers and
+    bf16-general on its general path."""
+    global launches, general_launches
     if any(is_sharded(t) for t in (GL, W, GR, x)):
         raise TypeError("ac_apply_bf16 takes plain tensors, got a DTensor: "
                         "pass its full_tensor() or to_local()")
     if x.device.type == "cpu":
         return ac_apply_bf16_reference(GL, W, GR, x)
     w, d, D = _check(GL, W, GR, x)
+    general = not fused(w, d)
     nbytes = _scratch_bytes(w, d, D)
-    with torch.cuda.device(x.device):
+    with (span("matvec", "bf16-general" if general else "bf16"),
+          torch.cuda.device(x.device)):
         # torch.cuda.current_stream() builds a Stream object on every call;
         # the raw handle is what the launch takes
         stream = torch._C._cuda_getCurrentRawStream(x.device.index)
@@ -96,4 +114,5 @@ def ac_apply_bf16(GL, W, GR, x):
         raise RuntimeError(f"ac_apply_bf16: kernel launch failed with CUDA "
                            f"error {err} (w={w}, d={d}, D={D})")
     launches += 1
+    general_launches += general
     return y

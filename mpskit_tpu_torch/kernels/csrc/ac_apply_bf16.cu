@@ -721,6 +721,10 @@ extern "C" size_t ac_apply_bf16_scratch_bytes(int w, int d, int D) {
   return carve(0, w, d, padded(D)).bytes;
 }
 
+// 1 where ac_apply_bf16 runs (w, d) on a fused tier of K1_TIERS, 0 where it
+// takes k1_general.
+extern "C" int ac_apply_bf16_fused(int w, int d) { return fused(w, d) ? 1 : 0; }
+
 // Launches K1 on `stream` without synchronizing, with `scratch` (256-byte
 // aligned, `scratch_bytes` long, at least ac_apply_bf16_scratch_bytes) as
 // its work space, and returns the launch's cudaError_t (0 on success).

@@ -1,0 +1,90 @@
+"""Lattice Hamiltonians on cylinders, as periodic MPOs of the chain that
+numbers the lattice's sites column by column (MPSKitModels.jl builds
+these from a lattice and its bonds; the JAX package has no counterpart).
+Each builds a host-numpy MPOHamiltonian; `environments.finite.stack_W`
+tiles its period over a FiniteMPS of any number of whole columns."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..operators.mpo import MPOHamiltonian
+from .spins import spinmatrices
+
+# the square lattice's bonds as (dx, dy) offsets: nearest neighbours
+# (J1) and next-nearest, the diagonals (J2)
+SQUARE_J1 = ((0, 1), (1, 0))
+SQUARE_J2 = ((1, 1), (1, -1))
+
+
+def _cylinder_spans(width: int, bonds) -> dict:
+    """{(y, r): n}: how many of the `bonds` offsets end on a site of row y
+    (the later of its two sites in the chain) and span r sites of the
+    chain i = width * x + y, on a cylinder periodic in y. Every column
+    past the first has the same bonds, so the table holds for all sites."""
+    table = {}
+    x = 2  # a bulk column: every bond that ends in it starts in it or in x-1
+    for x0 in (x - 1, x):
+        for y0 in range(width):
+            for dx, dy in bonds:
+                i = width * x0 + y0
+                j = width * (x0 + dx) + (y0 + dy) % width
+                lo, hi = min(i, j), max(i, j)
+                if hi // width == x:
+                    key = (hi % width, hi - lo)
+                    table[key] = table.get(key, 0) + 1
+    return table
+
+
+def j1_j2_model(J1: float = 1.0, J2: float = 0.5, spin: float = 0.5,
+                width: int = 6, dtype=np.float64) -> MPOHamiltonian:
+    """H = J1 sum_<ij> S_i . S_j + J2 sum_<<ij>> S_i . S_j, the spin-`spin`
+    J1-J2 Heisenberg model on the square lattice wrapped into a cylinder
+    of circumference `width` (periodic in y, open in x): MPSKitModels.jl's
+    `j1_j2_model` on a cylinder. Site (x, y) is site i = width * x + y of
+    the chain, so a FiniteMPS of width * Lx sites holds Lx columns.
+
+    Bonds: <ij> joins (x, y) to (x, y + 1 mod width) and to (x + 1, y);
+    <<ij>> joins (x, y) to (x + 1, y + 1 mod width) and (x + 1, y - 1 mod
+    width). In the chain they span 1 site (width - 1 across the wrap),
+    width sites, and width + 1 or width - 1 sites (1 and 2 width - 1
+    across the wrap).
+
+    The MPO has period `width`. S.S = Sz Sz + (S+ S- + S- S+) / 2 is real,
+    so the MPO is. Each of Sz, S+ and S- is carried through 2 width - 1
+    FSM levels: level (k, r) holds the k-th operator placed r sites to
+    the left. At a site of row y, level (k, r) closes with the summed
+    coefficient of the bonds that end on row y and span r sites, which
+    is the same in every column; w = 2 + 3 (2 width - 1), 35 at width 6.
+    The open ends need nothing more: no level is filled before site 0,
+    and levels still open at the last site are not read."""
+    if width < 3:
+        raise ValueError(f"a cylinder of width {width} < 3 joins some pair "
+                         "of sites by two bonds")
+    Sx, Sy, Sz, I = spinmatrices(spin)
+    Sp = np.real(Sx + 1j * Sy)
+    ops = [(np.real(Sz), np.real(Sz), 1.0), (Sp, Sp.T, 0.5),
+           (Sp.T, Sp, 0.5)]
+    d, R = I.shape[0], 2 * width - 1
+    w = 2 + len(ops) * R
+    coef = {}
+    for bonds, J in ((SQUARE_J1, J1), (SQUARE_J2, J2)):
+        for key, n in _cylinder_spans(width, bonds).items():
+            coef[key] = coef.get(key, 0.0) + n * J
+
+    def level(k, r):
+        return 1 + k * R + (r - 1)
+
+    entries = {}
+    for y in range(width):
+        entries[(y, 0, 0)] = 1.0
+        entries[(y, w - 1, w - 1)] = 1.0
+        for k, (A, B, f) in enumerate(ops):
+            entries[(y, 0, level(k, 1))] = A
+            for r in range(1, R):
+                entries[(y, level(k, r), level(k, r + 1))] = 1.0
+            for r in range(1, R + 1):
+                c = coef.get((y, r), 0.0)
+                if c != 0.0:
+                    entries[(y, level(k, r), w - 1)] = c * f * B
+    return MPOHamiltonian.from_fsm(entries, w, d, period=width, dtype=dtype)

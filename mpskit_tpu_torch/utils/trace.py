@@ -14,8 +14,10 @@ Each span sits inside the function whose work it measures:
     step    algorithms/tdvp.py: one finite TDVP step
     eigsh   linalg/lanczos.py::eigsh_smallest
     expm    linalg/expm.py::expm_multiply_err
-    matvec  algorithms/derivatives.py, `kind` exact, bf16 (K1), zero-site
-            or two-site
+    matvec  algorithms/derivatives.py, `kind` exact, zero-site or
+            two-site; kernels/ac_apply.py::ac_apply_bf16 on the card,
+            `kind` bf16 (K1's fused tiers) or bf16-general (its general
+            path)
     svd     tensors/ops.py::svd_truncated
     qr      tensors/ops.py::qr_pos (an LQ is qr_pos of the adjoint) and
             cholesky_qr2
@@ -31,7 +33,8 @@ instead: `count(name, n)` adds n to `rec.counts[name]` with no span
 
 The program's counters are plain module integers beside the code they
 count: `utils.sync.count` (host syncs), `kernels.ac_apply.launches`
-(launches of kernel K1), `linalg.graphs.captures` and `.replays` and
+and `.general_launches` (launches of kernel K1, all and on its general
+path), `linalg.graphs.captures` and `.replays` and
 `parallel.split.collectives` (the mesh's collectives). Spans say where
 the wall time went, which counters cannot.
 

@@ -69,6 +69,33 @@ def test_k1_matches_plain_on_card(D, d, w):
 
 
 @pytest.mark.cuda
+def test_k1_general_path_is_counted_apart():
+    """K1 at the J1-J2 cylinder's width (w=35, d=2: past every fused tier)
+    against its plain version; each call counted once in `launches` and
+    in `general_launches`, its matvec span of kind bf16-general, while a
+    call on a fused tier leaves `general_launches` alone."""
+    _need_card()
+    from mpskit_tpu_torch.utils import trace
+
+    assert not k1.fused(35, 2) and k1.fused(3, 2)
+    GL, W, GR, x = _k1_inputs(128, 2, 35, seed=35)
+    general, launches = k1.general_launches, k1.launches
+    with matmul_precision(), trace.recording() as rec:
+        ys = [derivatives.ac_apply_fast(GL, W, GR, x) for _ in range(2)]
+        y_plain = k1.ac_apply_bf16_reference(GL, W, GR, x)
+    torch.cuda.synchronize()
+    assert k1.general_launches == general + 2
+    assert k1.launches == launches + 2
+    assert [s.kind for s in rec.spans if s.name == "matvec"] == [
+        "bf16-general"] * 2
+    for y in ys:
+        assert float((y - y_plain).norm() / y_plain.norm()) <= 1e-3
+    derivatives.ac_apply_fast(*_k1_inputs(64, 2, 3, seed=3))
+    assert k1.general_launches == general + 2
+    assert k1.launches == launches + 3
+
+
+@pytest.mark.cuda
 def test_k1_is_deterministic():
     """No atomics and no split of a contracted index: two launches on the
     same inputs give bit-identical results."""
