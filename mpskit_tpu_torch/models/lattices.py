@@ -51,13 +51,22 @@ def j1_j2_model(J1: float = 1.0, J2: float = 0.5, spin: float = 0.5,
     across the wrap).
 
     The MPO has period `width`. S.S = Sz Sz + (S+ S- + S- S+) / 2 is real,
-    so the MPO is. Each of Sz, S+ and S- is carried through 2 width - 1
-    FSM levels: level (k, r) holds the k-th operator placed r sites to
-    the left. At a site of row y, level (k, r) closes with the summed
-    coefficient of the bonds that end on row y and span r sites, which
-    is the same in every column; w = 2 + 3 (2 width - 1), 35 at width 6.
-    The open ends need nothing more: no level is filled before site 0,
-    and levels still open at the last site are not read."""
+    so the MPO is. Each of Sz, S+ and S- placed on a site is carried to
+    the right one site at a time, and at a site of row y the operator
+    placed r sites to the left closes with the summed coefficient of the
+    bonds that end on row y and span r, the same in every column. It is
+    carried only while its source still has a bond to close: the longest
+    bond from a site of row 0 spans 2 width - 1 sites, from rows 1 to
+    width - 2 width + 1 sites, from row width - 1 width sites. Each bond
+    numbers its channels by the spans it carries, in increasing order: at
+    most width + 2 an operator (spans 1 .. width + 1 and the one row-0
+    source carried past them), so w = 2 + 3 (width + 2), 26 at width 6,
+    and a bond that carries fewer leaves its top channels zero. The row-0
+    source stays on its operator's top channel through the sites of rows
+    2 .. width - 2, and those of rows 0 and 1 do not repeat a channel, so
+    every middle channel's diagonal product over the period is zero.
+    The open ends need nothing more: no channel is filled before site 0,
+    and channels still open at the last site are not read."""
     if width < 3:
         raise ValueError(f"a cylinder of width {width} < 3 joins some pair "
                          "of sites by two bonds")
@@ -65,26 +74,34 @@ def j1_j2_model(J1: float = 1.0, J2: float = 0.5, spin: float = 0.5,
     Sp = np.real(Sx + 1j * Sy)
     ops = [(np.real(Sz), np.real(Sz), 1.0), (Sp, Sp.T, 0.5),
            (Sp.T, Sp, 0.5)]
-    d, R = I.shape[0], 2 * width - 1
-    w = 2 + len(ops) * R
     coef = {}
     for bonds, J in ((SQUARE_J1, J1), (SQUARE_J2, J2)):
         for key, n in _cylinder_spans(width, bonds).items():
             coef[key] = coef.get(key, 0.0) + n * J
+    reach = [0] * width  # the longest span of a bond from each row
+    for y, r in coef:
+        reach[(y - r) % width] = max(reach[(y - r) % width], r)
+    # spans[y]: the spans carried on the bond after a site of row y, each
+    # by the operator placed r - 1 sites to the left, while it has a bond
+    spans = [[r for r in range(1, max(reach) + 1)
+              if reach[(y - r + 1) % width] >= r] for y in range(width)]
+    n = max(map(len, spans))
+    d, w = I.shape[0], 2 + len(ops) * n
 
-    def level(k, r):
-        return 1 + k * R + (r - 1)
+    def channel(k, y, r):
+        return 1 + k * n + spans[y].index(r)
 
     entries = {}
     for y in range(width):
+        p = (y - 1) % width
         entries[(y, 0, 0)] = 1.0
         entries[(y, w - 1, w - 1)] = 1.0
         for k, (A, B, f) in enumerate(ops):
-            entries[(y, 0, level(k, 1))] = A
-            for r in range(1, R):
-                entries[(y, level(k, r), level(k, r + 1))] = 1.0
-            for r in range(1, R + 1):
+            entries[(y, 0, channel(k, y, 1))] = A
+            for r in spans[p]:
+                if r + 1 in spans[y]:
+                    entries[(y, channel(k, p, r), channel(k, y, r + 1))] = 1.0
                 c = coef.get((y, r), 0.0)
                 if c != 0.0:
-                    entries[(y, level(k, r), w - 1)] = c * f * B
+                    entries[(y, channel(k, p, r), w - 1)] = c * f * B
     return MPOHamiltonian.from_fsm(entries, w, d, period=width, dtype=dtype)

@@ -11,7 +11,7 @@ import torch
 
 from mpskit_tpu_torch import (
     DMRG, DMRG2, VUMPS, FiniteMPS, InfiniteMPS, expectation_value,
-    find_groundstate, heisenberg_XXX, svd_truncated,
+    find_groundstate, heisenberg_XXX, j1_j2_model, svd_truncated,
     transverse_field_ising_lattice, truncbelow, truncdim,
 )
 from mpskit_tpu_torch.algorithms import derivatives
@@ -147,6 +147,30 @@ def test_float32_dmrg_on_card_goes_through_k1():
     assert k1.launches > before
     E = float(expectation_value(psi, H, envs=envs))
     assert abs(E - e0) <= 1e-5 * abs(e0)
+
+
+@pytest.mark.cuda
+def test_j1j2_live_channels_on_card_match_the_distance_level_mpo():
+    """One float32 one-site DMRG sweep of a 6 x 4 J1-J2 cylinder at D=64
+    from one seeded start, under `j1_j2_model` (w=26) and under the MPO
+    that carries every span on every bond (w=35): the environment stacks
+    have those widths and the energies agree to 1e-5 relative."""
+    from test_torch_j1j2 import distance_level_model
+
+    _need_card()
+    width, Lx, D = 6, 4, 64
+    out = []
+    for H in (j1_j2_model(width=width), distance_level_model(width)):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        psi = FiniteMPS.random(width * Lx, 2, D, torch.float32, "cuda", gen)
+        psi, envs, _ = find_groundstate(
+            psi, H, DMRG(krylovdim=10, eig_maxrestarts=2, cheap_galerkin=True,
+                         maxiter=1, tol=0.0, verbosity=0))
+        E = float(expectation_value(psi, H, envs=envs))
+        out.append((envs.GLs.shape[1], envs.GRs.shape[1], E))
+    (wl, wr, E), (wld, wrd, Ed) = out
+    assert (wl, wr, wld, wrd) == (26, 26, 35, 35)
+    assert abs(E - Ed) <= 1e-5 * abs(Ed)
 
 
 @pytest.mark.cuda

@@ -1,11 +1,13 @@
 """The J1-J2 Heisenberg model on a square cylinder (`j1_j2_model`) against
 its lattice, on the CPU in float64: the MPO against the dense sum over the
-bond list, its FSM's coefficients against the bonds each (row, span)
-closes, the finite energy against the benchmark's plain lattice reference
-(benchmark/reference/lattice.py, which builds its own per-site MPO from
-the bonds), and one-site DMRG against sparse exact diagonalization. The
-bond list is written here from the lattice: site (x, y) is site W x + y,
-y periodic."""
+bond list, its FSM's channels followed from every source to the bonds it
+closes, its energies against an MPO that carries every operator through
+all 2 W - 1 spans (`distance_level_model`, also the card's reference in
+test_torch_cuda.py), the finite energy against the benchmark's plain
+lattice reference (benchmark/reference/lattice.py, which builds its own
+per-site MPO from the bonds), and one-site DMRG against sparse exact
+diagonalization. The bond list is written here from the lattice: site
+(x, y) is site W x + y, y periodic."""
 
 import sys
 from pathlib import Path
@@ -19,12 +21,19 @@ import torch
 from mpskit_tpu_torch import (
     DMRG, FiniteMPS, expectation_value, find_groundstate, j1_j2_model,
 )
+from mpskit_tpu_torch.operators.mpo import (
+    DIAG_IDENTITY, DIAG_ZERO, MPOHamiltonian,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 J1, J2 = 1.0, 0.5
+SZ = np.diag([0.5, -0.5])
+SP = np.array([[0.0, 1.0], [0.0, 0.0]])
+# the pair terms of S.S: (first operator, second operator, factor)
+TERMS = ((SZ, SZ, 1.0), (SP, SP.T, 0.5), (SP.T, SP, 0.5))
 
 
 def _bonds(width, Lx):
@@ -42,51 +51,132 @@ def _bonds(width, Lx):
     return out
 
 
+def distance_level_model(width):
+    """The J1-J2 cylinder's MPO (spin 1/2, float64) with each of Sz, S+,
+    S- carried through every span 1 .. 2 width - 1 on every bond, whether
+    or not its source has a bond left to close: w = 2 + 3 (2 width - 1)."""
+    R = 2 * width - 1
+    w = 2 + 3 * R
+    table = {}  # (y, r): the coupling of a bulk column's bonds that end
+    for i, j, J in _bonds(width, 4):  # on row y and span r sites
+        if j // width == 2:
+            table[(j % width, j - i)] = table.get((j % width, j - i), 0) + J
+    entries = {}
+    for y in range(width):
+        entries[(y, 0, 0)] = entries[(y, w - 1, w - 1)] = 1.0
+        for k, (A, B, f) in enumerate(TERMS):
+            entries[(y, 0, 1 + k * R)] = A
+            for r in range(1, R):
+                entries[(y, k * R + r, k * R + r + 1)] = 1.0
+            for r in range(1, R + 1):
+                if table.get((y, r), 0.0) != 0.0:
+                    entries[(y, k * R + r, w - 1)] = table[(y, r)] * f * B
+    return MPOHamiltonian.from_fsm(entries, w, 2, period=width,
+                                   dtype=np.float64)
+
+
 def _dense_hamiltonian(width, Lx, sparse=False):
     L = width * Lx
     kron = sp.kron if sparse else np.kron
     eye = sp.identity if sparse else np.eye
-    Sz = np.diag([0.5, -0.5])
-    Sp = np.array([[0.0, 1.0], [0.0, 0.0]])
 
     def at(o, i):
         return kron(kron(eye(2 ** i), o), eye(2 ** (L - i - 1)))
 
     H = 0
     for i, j, J in _bonds(width, Lx):
-        H = H + J * (at(Sz, i) @ at(Sz, j)
-                     + 0.5 * (at(Sp, i) @ at(Sp.T, j)
-                              + at(Sp.T, i) @ at(Sp, j)))
+        for A, B, f in TERMS:
+            H = H + J * f * (at(A, i) @ at(B, j))
     return H
 
 
 def test_mpo_is_the_dense_bond_sum():
     H = j1_j2_model(J1, J2, width=4)
-    assert H.odim == 2 + 3 * 7 and H.period == 4
+    assert H.odim == 20 and H.period == 4
     assert np.abs(H.to_matrix(8) - _dense_hamiltonian(4, 2)).max() <= 1e-12
 
 
+@pytest.mark.parametrize("width", [3, 5])
+def test_mpo_is_the_dense_bond_sum_at_other_widths(width):
+    """Two columns, as test_mpo_is_the_dense_bond_sum at width 4."""
+    H = j1_j2_model(J1, J2, width=width)
+    assert H.odim == 2 + 3 * (width + 2) and H.period == width
+    err = np.abs(H.to_matrix(2 * width) - _dense_hamiltonian(width, 2)).max()
+    assert err <= 1e-12
+
+
 def test_fsm_closes_each_span_with_its_bonds():
-    """w = 35 at width 6; at every row y and span r the Sz level closes
-    with J(y, r) Sz and the S+ level with J(y, r)/2 S-, J(y, r) the summed
-    coupling of the bonds of a bulk column that end on row y and span r."""
-    width, R = 6, 11
+    """w = 2 + 3 (W + 2) at widths 4, 6 and 8. Each source site and each
+    pair term (Sz Sz, S+ S- / 2, S- S+ / 2) opens one channel from level
+    0, which steps through the identity to one channel a bond and closes
+    at every later site t with the coupling of the bond (s, t) times the
+    second operator, and ends at the source's last bond: no channel is
+    carried dead. The channels of a bond are distinct, a bulk column's
+    bonds after rows 0 .. W-1 carry 3 (W+1), 3 (W+2) ... 3 (W+2), 3 W of
+    them, and every middle channel is used."""
+    for width in (4, 6, 8):
+        H = j1_j2_model(J1, J2, width=width)
+        w = H.odim
+        assert w == 2 + 3 * (width + 2) and H.period == width
+        Lx = 5
+        L = width * Lx
+        Ws = np.tile(H.W, (Lx, 1, 1, 1, 1))
+        J = {}
+        for i, j, c in _bonds(width, Lx):
+            J[(i, j)] = J.get((i, j), 0.0) + c
+        on_bond = [set() for _ in range(L)]
+        for s in range(width * (Lx - 1)):   # every partner in the chain
+            last = max(j for i, j in J if i == s)
+            for A, B, f in TERMS:
+                (c,) = [b for b in range(1, w - 1)
+                        if np.array_equal(Ws[s, 0, b], A)]
+                t = s + 1
+                while True:
+                    assert c not in on_bond[t - 1]
+                    on_bond[t - 1].add(c)
+                    np.testing.assert_allclose(
+                        Ws[t, c, w - 1], J.get((s, t), 0.0) * f * B,
+                        atol=1e-15)
+                    nxt = [b for b in range(1, w - 1)
+                           if np.abs(Ws[t, c, b]).max() > 0]
+                    if not nxt:
+                        break
+                    (b,) = nxt
+                    np.testing.assert_array_equal(Ws[t, c, b], np.eye(2))
+                    c, t = b, t + 1
+                assert t == last
+        bulk = [len(on_bond[2 * width + y]) for y in range(width)]
+        assert bulk == [3 * (width + 1)] + [3 * (width + 2)] * (width - 2) \
+            + [3 * width]
+        assert set().union(*on_bond) == set(range(1, w - 1))
+
+
+@pytest.mark.parametrize("Lx", [2, 3])
+def test_energy_equals_the_distance_level_mpo(Lx):
+    """Width 6: the channels left out carried only zeros to the end, so a
+    seeded random MPS has the same energy under both MPOs."""
+    width, D = 6, 16
+    gen = torch.Generator().manual_seed(20 + Lx)
+    psi = FiniteMPS.random(width * Lx, 2, D, torch.float64, "cpu", gen)
+    H = j1_j2_model(J1, J2, width=width)
+    Hd = distance_level_model(width)
+    assert (H.odim, Hd.odim) == (26, 35)
+    E, Ed = (float(expectation_value(psi, h)) for h in (H, Hd))
+    assert abs(Ed) > 1e-3
+    assert abs(E - Ed) <= 1e-12 * max(1.0, abs(Ed))
+
+
+@pytest.mark.parametrize("width", [3, 4, 5, 6, 7, 8])
+def test_middle_channels_vanish_over_the_period(width):
+    """Level 0 and level w-1 are the identity at every site; every middle
+    channel's diagonal product over the period is zero, so a period-width
+    infinite cell is a valid Jordan form, and W is upper-triangular."""
     H = j1_j2_model(J1, J2, width=width)
     w = H.odim
-    assert w == 35 and H.period == width
-    table = {}
-    for i, j, J in _bonds(width, 4):
-        if j // width == 2:
-            table[(j % width, j - i)] = table.get((j % width, j - i), 0) + J
-    assert {r for _, r in table} == {1, 5, 6, 7, 11}
-    Sz = np.diag([0.5, -0.5])
-    Sm = np.array([[0.0, 0.0], [1.0, 0.0]])
-    for y in range(width):
-        for r in range(1, R + 1):
-            J = table.get((y, r), 0.0)
-            np.testing.assert_allclose(H.W[y, r, w - 1], J * Sz, atol=1e-15)
-            np.testing.assert_allclose(H.W[y, 1 + R + r - 1, w - 1],
-                                       0.5 * J * Sm, atol=1e-15)
+    assert H.diag_class[0] == H.diag_class[w - 1] == DIAG_IDENTITY
+    assert set(H.diag_class[1:w - 1]) == {DIAG_ZERO}
+    below = np.tril(np.ones((w, w), bool), -1)
+    assert not np.abs(H.W).max(axis=(3, 4))[:, below].any()
 
 
 def test_energy_matches_the_lattice_reference():
