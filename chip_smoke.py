@@ -4659,27 +4659,27 @@ def _mesh_sweep_idle(mesh, H, psi_u, psi_m):
     from mpskit_tpu_torch.environments.finite import (
         compute_right_envs, right_boundary, stack_W,
     )
-    from mpskit_tpu_torch.parallel import sharded
-    from mpskit_tpu_torch.parallel.split import BondSplit
+    from mpskit_tpu_torch.parallel.sharded import FiniteShards
     from mpskit_tpu_torch.states.finitemps import support_mask
 
     L, d, D = psi_u.length, psi_u.physicaldim, psi_u.D
     Ws = stack_W(H, L, torch.float32, "cuda")
     masks = torch.as_tensor(support_mask(L, d, D), device="cuda")
-    sp = BondSplit(mesh, D)
+    shards = FiniteShards(psi_m)
+    sp = shards.split
     out = {}
     with matmul_precision():
-        GRs = compute_right_envs(psi_u.ARs, Ws, right_boundary(
-            Ws.shape[1], D, torch.float32, "cuda"))
-        ALs, ARs, AC = sharded._finite_locals(psi_m, sp, mesh)
-        GRs_m = sharded.right_envs(sp, ARs, Ws)
+        GRR = right_boundary(Ws.shape[1], D, torch.float32, "cuda")
+        GRs = compute_right_envs(psi_u.ARs, Ws, GRR)
+        ALs, ARs, AC = shards.locals(psi_m)
+        GRs_m = compute_right_envs(ARs, Ws, GRR, split=sp)
         sweeps = {
             "unsharded": lambda: dmrg._dmrg_sweep_impl(
                 psi_u.ALs.clone(), psi_u.ARs.clone(), psi_u.AC.clone(), Ws,
                 GRs.clone(), 1e-6, 10, 2, masks=masks, cheap_galerkin=True),
-            "mesh": lambda: sharded.dmrg_sweep(
-                sp, ALs.clone(), ARs.clone(), AC.clone(), Ws, GRs_m.clone(),
-                1e-6, 10, 2, masks=masks, cheap_galerkin=True)}
+            "mesh": lambda: dmrg._dmrg_sweep_impl(
+                ALs.clone(), ARs.clone(), AC.clone(), Ws, GRs_m.clone(),
+                1e-6, 10, 2, masks=masks, cheap_galerkin=True, split=sp)}
         for name, fn in sweeps.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -4782,37 +4782,31 @@ def _mesh_vumps(mesh, psi0, env0):
     from mpskit_tpu_torch.algorithms.vumps import _vumps_iteration_impl
     from mpskit_tpu_torch.config import matmul_precision
     from mpskit_tpu_torch.parallel import shard_infinite_mps, split
-    from mpskit_tpu_torch.parallel import sharded
-    from mpskit_tpu_torch.parallel.split import BondSplit
+    from mpskit_tpu_torch.parallel.sharded import InfiniteShards
 
     a = VUMPS_ARGS
     H = transverse_field_ising_lattice(g=VUMPS_G)
     e0 = tfim_density(VUMPS_G)
-    sp = BondSplit(mesh, psi0.D)
     res = {}
     with matmul_precision():
         for name in ("unsharded", "mesh"):
-            psi, env = psi0, env0
+            psi, env, sp = psi0, env0, None
             psi_in = shard_infinite_mps(psi0, mesh) if name == "mesh" \
                 else None
             if psi_in is not None:
-                psi = sharded._whole_infinite(psi_in)
+                shards = InfiniteShards(psi_in)
+                psi, sp = shards.whole(psi_in), shards.split
             mark, marks = _sweep_marks()
             split.collectives = 0
             mark()
             for _ in range(MESH_VUMPS_ITERS):
-                if name == "mesh":
-                    psi, eps, env, _ = sharded.vumps_iteration(
-                        sp, None, psi, H, a["m"], a["restarts"],
-                        a["env_tol_static"], a["inner_tol"], env_guess=env)
-                else:
-                    psi, eps, env, _ = _vumps_iteration_impl(
-                        psi, H, a["m"], a["restarts"], a["gauge_tol"],
-                        a["env_tol_static"], a["inner_tol"], env_guess=env)
+                psi, eps, env, _ = _vumps_iteration_impl(
+                    psi, H, a["m"], a["restarts"], a["gauge_tol"],
+                    a["env_tol_static"], a["inner_tol"], env_guess=env,
+                    split=sp)
                 mark()
             rows = _mark_intervals(marks)
-            out = (sharded._infinite_out(psi_in, mesh, psi)
-                   if psi_in is not None else psi)
+            out = shards.state(psi) if psi_in is not None else psi
             e = float(expectation_value(out, H)[0])
             res[name] = (e, rows, out, psi_in)
             log(f"[mesh] b: {name}: {_later_mean(rows, 0) * 1e3:.3f} ms per "

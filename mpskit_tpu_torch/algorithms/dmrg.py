@@ -76,31 +76,35 @@ def _galerkin_right(AR, y):
     return torch.linalg.vector_norm(y - torch.einsum("lm,mpr->lpr", z, AR))
 
 
-def _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth, use_fast,
-                mask=None):
+def _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth, mask=None,
+                split=None):
     """The site eigensolve. With a charge mask the solve itself runs in the
     sector: the matvec is x -> m * H(m * x) (the fast probe too) and the
     start vector m * AC. Masking only the eigenvector lets the Krylov space
     pick up rounding outside the sector and converge to a lower foreign
-    sector (ROADMAP.md, F6). Without a mask the path is unchanged."""
+    sector (ROADMAP.md, F6). Without a mask the path is unchanged. With a
+    `parallel.split.BondSplit` (GR this rank's columns, no charge mask) the
+    matvec and the probe are the split's."""
+    if split is not None:
+        mv, fast = split.site_matvecs(GL, W, GR)
+        return eigsh_smallest(mv, AC, m, restarts, inner_tol, reorth=reorth,
+                              matvec_fast=fast)
     if mask is None:
         return eigsh_smallest(
             lambda x: ac_apply(GL, W, GR, x), AC, m, restarts, inner_tol,
             reorth=reorth,
-            matvec_fast=(lambda x: ac_apply_fast(GL, W, GR, x))
-            if use_fast else None)
+            matvec_fast=lambda x: ac_apply_fast(GL, W, GR, x))
     return eigsh_smallest(
         lambda x: mask * ac_apply(GL, W, GR, mask * x), mask * AC, m,
         restarts, inner_tol, reorth=reorth,
-        matvec_fast=(lambda x: mask * ac_apply_fast(GL, W, GR, mask * x))
-        if use_fast else None)
+        matvec_fast=lambda x: mask * ac_apply_fast(GL, W, GR, mask * x))
 
 
 def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
                      restarts: int, GL0=None, GRL=None, masks=None,
                      bulk_flags=None, reorth: str = "local1",
-                     use_fast: bool = True, cheap_galerkin: bool = False,
-                     split_dtype=None, sector_solve: bool = False):
+                     cheap_galerkin: bool = False, split_dtype=None,
+                     sector_solve: bool = False, split=None):
     """One full DMRG sweep (L2R over sites 0..L-2, R2L over L-1..1),
     starting and ending with center = 0.
 
@@ -120,7 +124,13 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
     off-mask part carries up to 2e-2 of the tensor, which masking Q then
     drops (a float32 U(1) sweep of the XX chain at D=128 rose 0.1 in
     energy from sweep to sweep; 9e-3 above its sector's energy at D=512
-    on the card); in float64 the loss is 1e-12."""
+    on the card); in float64 the loss is 1e-12.
+
+    split: a `parallel.split.BondSplit` runs the sweep on a bond-sharded
+    chain. ALs, ARs and GRs are then this rank's columns, AC, the masks
+    and the boundaries (GL0, GRL) whole; the products are the split's, and
+    the environment carried through each half sweep is whole (left) or
+    this rank's columns (right)."""
     with span("sweep"):
         L, D = ALs.shape[0], ALs.shape[1]
         w = Ws.shape[1]
@@ -129,6 +139,8 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
             GL0 = left_boundary(w, D, dtype, device)
         if GRL is None:
             GRL = right_boundary(w, D, dtype, device)
+        if split is not None:
+            GRL = split.local(GRL)
         if masks is None:
             maskf = torch.ones((L, 1, 1, 1), dtype=dtype, device=device)
         else:
@@ -142,43 +154,66 @@ def _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, inner_tol: float, m: int,
         lams, resids, convs = [], [], []
 
         # ---- left-to-right: solve sites 0..L-2 ----
-        GLs = torch.empty((L,) + tuple(GL0.shape), dtype=dtype, device=device)
+        # the left stack has the right one's shape (split: its columns)
+        GLs = torch.empty((L,) + tuple(GRs.shape[1:]), dtype=dtype,
+                          device=device)
         GL = GL0
         for i in range(L - 1):
-            GLs[i] = GL
+            GLs[i] = GL if split is None else split.local(GL)
             W, GR = Ws[i], GRs[i + 1]
             res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
-                              use_fast, maskf[i] if sector_solve else None)
+                              maskf[i] if sector_solve else None, split)
             ACp = res.eigenvector * maskf[i]
             ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
             AL, C = orth_in(leftorth_hybrid, ACp, split_dtype, bool(bulkL[i]))
             AL = AL * maskf[i]
-            if not cheap_galerkin:
-                eps_dev.append(_galerkin_left(AL, ac_apply(GL, W, GR, ACp)))
-            GL = transfer_left_mpo(GL, W, AL, AL)
-            AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
-            ALs[i] = AL
+            if split is None:
+                if not cheap_galerkin:
+                    eps_dev.append(_galerkin_left(
+                        AL, ac_apply(GL, W, GR, ACp)))
+                GL = transfer_left_mpo(GL, W, AL, AL)
+                AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
+                ALs[i] = AL
+            else:
+                if not cheap_galerkin:
+                    eps_dev.append(_galerkin_left(
+                        AL, split.ac_apply(GL, W, GR, ACp)))
+                GL = split.push_left(GL, W, AL)
+                AC = split.gather(
+                    torch.einsum("lm,mpr->lpr", C, ARs[i + 1]), -1)
+                ALs[i] = split.local(AL)
             lams.append(res.eigenvalue)
             resids.append(res.residual)
             convs.append(res.converged)
-        GLs[L - 1] = GL
+        GLs[L - 1] = GL if split is None else split.local(GL)
 
         # ---- right-to-left: solve sites L-1..1 ----
         GR = GRL
         for i in range(L - 1, 0, -1):
             GRs[i + 1] = GR
-            W, GL = Ws[i], GLs[i]
+            W = Ws[i]
+            GL = GLs[i] if split is None else split.gather(GLs[i], -1)
             res = _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth,
-                              use_fast, maskf[i] if sector_solve else None)
+                              maskf[i] if sector_solve else None, split)
             ACp = res.eigenvector * maskf[i]
             ACp = ACp / torch.clamp(torch.linalg.vector_norm(ACp), min=1e-30)
             C, AR = orth_in(rightorth_hybrid, ACp, split_dtype, bool(bulkR[i]))
             AR = AR * maskf[i]
-            if not cheap_galerkin:
-                eps_dev.append(_galerkin_right(AR, ac_apply(GL, W, GR, ACp)))
-            GR = transfer_right_mpo(GR, W, AR, AR)
-            AC = torch.einsum("lpm,mr->lpr", ALs[i - 1], C)
-            ARs[i] = AR
+            if split is None:
+                if not cheap_galerkin:
+                    eps_dev.append(_galerkin_right(
+                        AR, ac_apply(GL, W, GR, ACp)))
+                GR = transfer_right_mpo(GR, W, AR, AR)
+                AC = torch.einsum("lpm,mr->lpr", ALs[i - 1], C)
+                ARs[i] = AR
+            else:
+                if not cheap_galerkin:
+                    eps_dev.append(_galerkin_right(
+                        AR, split.ac_apply(GL, W, GR, ACp)))
+                GR = split.push_right(GR, W, AR)
+                AC = split.all_reduce(
+                    torch.einsum("lpm,mr->lpr", ALs[i - 1], C[split.sl]))
+                ARs[i] = split.local(AR)
             lams.append(res.eigenvalue)
             resids.append(res.residual)
             convs.append(res.converged)
@@ -232,41 +267,60 @@ def find_groundstate_dmrg_window(psi, H, alg: DMRG = DMRG()):
 
 def find_groundstate_dmrg(psi: FiniteMPS, H, alg: DMRG = DMRG()):
     """Run one-site DMRG. Returns (psi, envs, epsilon); a WindowMPS goes to
-    `find_groundstate_dmrg_window`, a bond-sharded state (`parallel.mesh`)
-    to `parallel.sharded.find_groundstate_dmrg_sharded`."""
+    `find_groundstate_dmrg_window`. A bond-sharded state (`parallel.mesh`)
+    runs the same sweeps on this rank's columns of its stacks
+    (`parallel.sharded.FiniteShards`) and comes back in its placements,
+    the environments as DTensors sharded over "bond"."""
     if isinstance(psi, WindowMPS):
         return find_groundstate_dmrg_window(psi, H, alg)
-    if is_sharded(psi.AC):
-        from ..parallel.sharded import find_groundstate_dmrg_sharded
-        return find_groundstate_dmrg_sharded(psi, H, alg)
     L, D, d = psi.length, psi.D, psi.physicaldim
     dtype, device = psi.dtype, psi.device
-    psi = psi.move_center(0)
+    shards = split = None
+    if is_sharded(psi.AC):
+        from ..parallel.sharded import FiniteShards
+        shards = FiniteShards(psi)
+        split = shards.split
+    else:
+        psi = psi.move_center(0)
     Ws = stack_W(H, L, dtype, device)
     w = Ws.shape[1]
     masks = torch.as_tensor(support_mask(L, d, D), device=device)
     bulk_flags = bulk_rank_flags(L, d, D) if alg.fast_qr else None
 
-    log = IterLog("DMRG", alg.verbosity)
+    log = IterLog("DMRG" if shards is None else "DMRG(mesh)", alg.verbosity)
     log.init()
-    # copies: the sweep updates its tensor arguments in place; the caller's
-    # psi (and any state a finalize hook returns) must stay valid
-    ALs, ARs, AC = psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone()
+
+    def copies(psi):
+        # the sweep updates its tensor arguments in place; the caller's psi
+        # (and any state a finalize hook returns) must stay valid
+        if shards is None:
+            return psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone()
+        return shards.locals(psi)
+
+    ALs, ARs, AC = copies(psi)
     eps = 1.0
     lam = 0.0
     it = 0
     with matmul_precision():
-        GRs = compute_right_envs(ARs, Ws, right_boundary(w, D, dtype, device))
+        GRs = compute_right_envs(ARs, Ws, right_boundary(w, D, dtype, device),
+                                 split=split)
         for it in range(1, alg.maxiter + 1):
             inner_tol = updatetol(eps, it)
             ALs, ARs, AC, GRs, lam, eps, diag = _dmrg_sweep_impl(
                 ALs, ARs, AC, Ws, GRs, inner_tol, alg.krylovdim,
                 alg.eig_maxrestarts, masks=masks, bulk_flags=bulk_flags,
-                reorth=alg.reorth, cheap_galerkin=alg.cheap_galerkin)
-            psi = FiniteMPS(ALs, ARs, AC, 0)
+                reorth=alg.reorth, cheap_galerkin=alg.cheap_galerkin,
+                split=split)
+            psi = (FiniteMPS(ALs, ARs, AC, 0) if shards is None
+                   else shards.state(ALs, ARs, AC))
             if alg.finalize is not None:
-                psi = alg.finalize(it, psi, H) or psi
-                ALs, ARs, AC = psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone()
+                new = alg.finalize(it, psi, H)
+                if new is None or new is psi:
+                    # psi shares the working stacks
+                    ALs, ARs, AC = ALs.clone(), ARs.clone(), AC.clone()
+                else:
+                    psi = new
+                    ALs, ARs, AC = copies(psi)
             log.solver_warn(it, diag, inner_tol)
             if alg.verbosity >= VERBOSE_ITER:
                 log.conv(it, lam, eps)
@@ -274,5 +328,8 @@ def find_groundstate_dmrg(psi: FiniteMPS, H, alg: DMRG = DMRG()):
                 break
         else:
             log.cancel(it, lam, eps)
-        GLs = compute_left_envs(ALs, Ws, left_boundary(w, D, dtype, device))
+        GLs = compute_left_envs(ALs, Ws, left_boundary(w, D, dtype, device),
+                                split=split)
+    if shards is not None:
+        return psi, shards.envs(GLs, GRs), eps
     return psi, FiniteEnv(GLs, GRs), eps

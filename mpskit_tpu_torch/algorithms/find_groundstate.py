@@ -68,8 +68,9 @@ def find_groundstate(psi, H, alg=None, envs=None, tol: float = 1e-10,
     branch: an anyonic state raises TypeError naming its own solvers.
 
     A sharded FiniteMPS under DMRG and a sharded InfiniteMPS under VUMPS
-    run on their shards (`parallel/sharded.py`); every other sharded
-    call is gathered once and runs replicated (`parallel/replicated.py`)."""
+    run the same loops on their shards (`parallel/sharded.py`); every
+    other sharded call is gathered once and runs replicated
+    (`parallel/replicated.py`)."""
     if has_sharded(psi, envs) and not (
             isinstance(alg, ChainedAlg)
             or (type(psi) is FiniteMPS and isinstance(alg, DMRG))

@@ -154,8 +154,23 @@ def _timestep_infinite(psi: InfiniteMPS, H, dt, m: int, gauge_tol: float,
 # finite TDVP
 # ----------------------------------------------------------------------------
 
+def _site_op(split, GL, W, GR):
+    """The site matvec of an exponential: a `Bound`, which the card replays
+    as a CUDA graph, or with a BondSplit the split's eager closure (a graph
+    does not hold the collectives)."""
+    if split is None:
+        return Bound(ac_apply, GL, W, GR)
+    return lambda x: split.ac_apply(GL, W, GR, x)
+
+
+def _bond_op(split, GL, GR):
+    if split is None:
+        return Bound(c_apply, GL, GR)
+    return lambda x: split.c_apply(GL, GR, x)
+
+
 def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
-                     GRL=None, masks=None, split_dtype=None):
+                     GRL=None, masks=None, split_dtype=None, split=None):
     """One symmetric second-order step, starting and ending with center 0.
     Returns (ALs, ARs, AC, GRs, exp_err): new stacks (the inputs are not
     written) and the worst Krylov estimate, a host float. GL0/GRL override
@@ -170,7 +185,8 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
     unmasked ARs carry junk blocks that make H_eff move genuine weight off
     the support, which the in-sweep masking then deletes. split_dtype: the
     dtype of the QR / LQ, for charge masks in single precision (see
-    `dmrg._dmrg_sweep_impl`)."""
+    `dmrg._dmrg_sweep_impl`). split: a `parallel.split.BondSplit`, with
+    the layout of `dmrg._dmrg_sweep_impl`'s."""
     with span("step"):
         L, D = ALs.shape[0], ALs.shape[1]
         w = Ws.shape[1]
@@ -182,27 +198,35 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
         # ---- left to right: site i forward, then its right bond backward ----
         ALs_new = torch.empty_like(ALs)
         GL = left_boundary(w, D, dtype, device) if GL0 is None else GL0
-        GLs = torch.empty((L,) + tuple(GL.shape), dtype=dtype, device=device)
+        # the left stack has the right one's shape (split: its columns)
+        GLs = torch.empty((L,) + tuple(GRs.shape[1:]), dtype=dtype,
+                          device=device)
         for i in range(L):
-            GLs[i] = GL
+            GLs[i] = GL if split is None else split.local(GL)
             W, GR = Ws[i], GRs[i + 1]
-            AC, errA = expm_multiply_err(Bound(ac_apply, GL, W, GR), AC,
+            AC, errA = expm_multiply_err(_site_op(split, GL, W, GR), AC,
                                          tau, m)
             if mk is not None:
                 AC = AC * mk[i]
             AL, C = orth_in(leftorth, AC, split_dtype)
             if mk is not None:
                 AL = AL * mk[i]
-            GL = transfer_left_mpo(GL, W, AL, AL)
-            ALs_new[i] = AL
+            if split is None:
+                GL = transfer_left_mpo(GL, W, AL, AL)
+                ALs_new[i] = AL
+            else:
+                GL = split.push_left(GL, W, AL)
+                ALs_new[i] = split.local(AL)
             if i == L - 1:
                 # the last site keeps AC = AL C: the final center tensor
                 AC = torch.einsum("lpm,mr->lpr", AL, C)
                 errs.append(errA)
             else:
-                C, errC = expm_multiply_err(Bound(c_apply, GL, GR), C,
+                C, errC = expm_multiply_err(_bond_op(split, GL, GR), C,
                                             -tau, m)
                 AC = torch.einsum("lm,mpr->lpr", C, ARs[i + 1])
+                if split is not None:
+                    AC = split.gather(AC, -1)
                 errs.append(max(errA, errC))
 
         # ---- right to left: site i forward, then its left bond backward ----
@@ -211,25 +235,35 @@ def _timestep_finite(ALs, ARs, AC, Ws, GRs, m: int, dt=0.01, GL0=None,
         ARs_new = ARs.clone()
         GRs_new = torch.empty_like(GRs)
         GR = right_boundary(w, D, dtype, device) if GRL is None else GRL
+        if split is not None:
+            GR = split.local(GR)
         for i in range(L - 1, -1, -1):
             GRs_new[i + 1] = GR
-            GLi, W = GLs[i], Ws[i]
-            AC, errA = expm_multiply_err(Bound(ac_apply, GLi, W, GR), AC,
+            W = Ws[i]
+            GLi = GLs[i] if split is None else split.gather(GLs[i], -1)
+            AC, errA = expm_multiply_err(_site_op(split, GLi, W, GR), AC,
                                          tau, m)
             if mk is not None:
                 AC = AC * mk[i]
             C, AR = orth_in(rightorth, AC, split_dtype)
             if mk is not None:
                 AR = AR * mk[i]
-            GR = transfer_right_mpo(GR, W, AR, AR)
+            if split is None:
+                GR = transfer_right_mpo(GR, W, AR, AR)
+            else:
+                GR = split.push_right(GR, W, AR)
             if i == 0:
                 AC = torch.einsum("lm,mpr->lpr", C, AR)
                 errs.append(errA)
             else:
-                ARs_new[i] = AR
-                C, errC = expm_multiply_err(Bound(c_apply, GLi, GR), C,
+                ARs_new[i] = AR if split is None else split.local(AR)
+                C, errC = expm_multiply_err(_bond_op(split, GLi, GR), C,
                                             -tau, m)
-                AC = torch.einsum("lpm,mr->lpr", ALs_new[i - 1], C)
+                if split is None:
+                    AC = torch.einsum("lpm,mr->lpr", ALs_new[i - 1], C)
+                else:
+                    AC = split.all_reduce(torch.einsum(
+                        "lpm,mr->lpr", ALs_new[i - 1], C[split.sl]))
                 errs.append(max(errA, errC))
         GRs_new[0] = GRs_new[1]
         return ALs_new, ARs_new, AC, GRs_new, max(errs)
@@ -265,8 +299,8 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
     An SU2FiniteMPS (complex) under a ReducedMPO takes one reduced
     one-site TDVP step (SU2TDVP, or TDVP's Krylov dimension capped at 24)
     and returns envs None. A bond-sharded FiniteMPS (`parallel.mesh`)
-    takes its TDVP step on its shards (`parallel/sharded.py`); every other
-    sharded call is gathered once and runs replicated."""
+    takes the same TDVP step on its shards (`parallel.sharded.FiniteShards`);
+    every other sharded call is gathered once and runs replicated."""
     if has_sharded(psi, envs) and (type(psi) is not FiniteMPS
                                    or isinstance(alg, TDVP2)):
         return run_replicated("timestep", timestep, psi, H, t, dt, alg, envs)
@@ -324,12 +358,15 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
                 raise TypeError("TDVP2 re-splits bonds without their "
                                 "charges; a SymmetricFiniteMPS takes TDVP")
             return _timestep_finite2_entry(psi, H, dt, alg)
+        shards = split = None
         if is_sharded(inner.AC):
-            from ..parallel.sharded import timestep_finite_sharded
-            out, exp_err = timestep_finite_sharded(inner, H, dt, alg)
-            _warn_exp(alg, exp_err, name="TDVP(finite, mesh)")
-            return out, None
-        inner = inner.move_center(0)
+            from ..parallel.sharded import FiniteShards
+            shards = FiniteShards(inner)
+            split = shards.split
+            ALs, ARs, AC = shards.locals(inner)
+        else:
+            inner = inner.move_center(0)
+            ALs, ARs, AC = inner.ALs, inner.ARs, inner.AC
         L, D = inner.length, inner.D
         dtype, device = inner.dtype, inner.device
         smask = torch.as_tensor(support_mask(L, inner.physicaldim, D),
@@ -342,14 +379,19 @@ def timestep(psi, H, t, dt, alg=None, envs=None):
         mk = smask.to(dtype)
         with matmul_precision():
             Ws = stack_W(H, L, dtype, device)
-            ALs0, ARs0, AC0 = inner.ALs * mk, inner.ARs * mk, inner.AC * mk[0]
+            mk_cols = mk if split is None else split.local(mk)
+            ALs0, ARs0, AC0 = ALs * mk_cols, ARs * mk_cols, AC * mk[0]
             GRs = compute_right_envs(
-                ARs0, Ws, right_boundary(Ws.shape[1], D, dtype, device))
+                ARs0, Ws, right_boundary(Ws.shape[1], D, dtype, device),
+                split=split)
             ALs, ARs, AC, _, exp_err = _timestep_finite(
                 ALs0, ARs0, AC0, Ws, GRs, alg.expalg_m, dt=dt, masks=smask,
                 split_dtype=(masked_split_dtype(dtype)
                              if isinstance(psi, SymmetricFiniteMPS)
-                             else None))
+                             else None), split=split)
+        if shards is not None:
+            _warn_exp(alg, exp_err, name="TDVP(finite, mesh)")
+            return shards.state(ALs, ARs, AC), None
         _warn_exp(alg, exp_err, name="TDVP(finite)")
         out = FiniteMPS(ALs, ARs, AC, 0)
         if isinstance(psi, SymmetricFiniteMPS):

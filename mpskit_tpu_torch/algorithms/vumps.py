@@ -52,27 +52,39 @@ class VUMPS(Chainable):
     device_batch: int = 1
 
 
-def _solve_acs(envs, Ws, ACs, m: int, restarts: int, inner_tol: float):
+def _solve_acs(envs, Ws, ACs, m: int, restarts: int, inner_tol: float,
+               split=None, sites=None):
     """Smallest eigenvector of each site's AC effective Hamiltonian,
-    started from the current AC. Returns (ACs', converged flags)."""
+    started from the current AC. Returns (ACs', converged flags). With a
+    `parallel.split.BondSplit` the matvecs run split over "bond"; `sites`
+    (default all) are the sites to solve."""
     out, conv = [], []
-    for i in range(ACs.shape[0]):
+    for i in range(ACs.shape[0]) if sites is None else sites:
         GL, W, GR = envs.GLs[i], Ws[i], envs.GRs[i]
-        res = eigsh_smallest(lambda x: ac_apply(GL, W, GR, x), ACs[i], m,
-                             restarts, inner_tol, reorth="local1")
+        if split is not None:
+            GR = split.local(GR)
+        res = eigsh_smallest(
+            (lambda x: ac_apply(GL, W, GR, x)) if split is None
+            else (lambda x: split.ac_apply(GL, W, GR, x)), ACs[i], m,
+            restarts, inner_tol, reorth="local1")
         out.append(res.eigenvector)
         conv.append(res.converged)
     return torch.stack(out), conv
 
 
-def _solve_cs(envs, Cs, m: int, restarts: int, inner_tol: float):
+def _solve_cs(envs, Cs, m: int, restarts: int, inner_tol: float,
+              split=None, sites=None):
     """The same for each bond's C: bond i uses (GLs[i+1], GRs[i])."""
     L = Cs.shape[0]
     out, conv = [], []
-    for i in range(L):
+    for i in range(L) if sites is None else sites:
         GL, GR = envs.GLs[(i + 1) % L], envs.GRs[i]
-        res = eigsh_smallest(lambda x: c_apply(GL, GR, x), Cs[i], m,
-                             restarts, inner_tol, reorth="local1")
+        if split is not None:
+            GR = split.local(GR)
+        res = eigsh_smallest(
+            (lambda x: c_apply(GL, GR, x)) if split is None
+            else (lambda x: split.c_apply(GL, GR, x)), Cs[i], m, restarts,
+            inner_tol, reorth="local1")
         out.append(res.eigenvector)
         conv.append(res.converged)
     return torch.stack(out), conv
@@ -107,30 +119,48 @@ def _regauge(ACs, Cs, A_mask=None, C_mask=None):
 def _vumps_iteration_impl(psi: InfiniteMPS, H, m: int, restarts: int,
                           gauge_tol: float, env_tol_static: float,
                           inner_tol=1e-6, A_mask=None, C_mask=None,
-                          env_guess=None):
+                          env_guess=None, split=None, site=None):
     """One VUMPS iteration: returns (psi', eps, envs, diag), eps a 0-dim
     tensor and diag the host pair (# unconverged local solves, worst
     environment-GMRES relative residual). `env_guess` (the previous
     iteration's environments) warm-starts the geometric-series solves.
-    Run it inside `config.matmul_precision()`."""
+    Run it inside `config.matmul_precision()`.
+
+    On a mesh psi stays whole: `split` (a `parallel.split.BondSplit`) runs
+    the environment walk and the local solves split over "bond", and with
+    `site` (a `MeshAxis` over "site") each site rank solves its own block
+    of the unit cell and the solutions are all-gathered."""
     envs = hamiltonian_environments(psi, H, tol=env_tol_static,
-                                    env_init=env_guess)
+                                    env_init=env_guess, split=split)
     Ws = stack_W(H, psi.period, psi.dtype, psi.device)
-    ACs, conv_ac = _solve_acs(envs, Ws, psi.AC, m, restarts, inner_tol)
-    Cs, conv_c = _solve_cs(envs, psi.C, m, restarts, inner_tol)
-    diag = (sum(not c for c in conv_ac + conv_c), envs.resid)
+    sites = None if site is None else site.block(psi.period, "sites")
+    ACs, conv_ac = _solve_acs(envs, Ws, psi.AC, m, restarts, inner_tol,
+                              split, sites)
+    Cs, conv_c = _solve_cs(envs, psi.C, m, restarts, inner_tol, split, sites)
+    n_unconv = sum(not c for c in conv_ac + conv_c)
+    if site is not None:
+        ACs, Cs = site.gather(ACs, 0), site.gather(Cs, 0)
+        n_unconv = int(to_host(site.all_reduce(torch.tensor(
+            float(n_unconv), dtype=torch.float64, device=psi.device)))[0])
+    diag = (n_unconv, envs.resid)
     psi_new, eps = _regauge(ACs, Cs, A_mask, C_mask)
     return psi_new, eps, envs, diag
 
 
 def find_groundstate_vumps(psi: InfiniteMPS, H, alg: VUMPS = VUMPS()):
     """Run VUMPS. Returns (psi, envs, eps). A sharded state
-    (`parallel.mesh`) goes to
-    `parallel.sharded.find_groundstate_vumps_sharded`."""
+    (`parallel.mesh`) runs the same iterations on its whole tensors with
+    the products split over the mesh (`parallel.sharded.InfiniteShards`),
+    and comes back in its placements, the environments sharded over
+    "bond"."""
+    shards = split = site = None
     if is_sharded(psi.AL):
-        from ..parallel.sharded import find_groundstate_vumps_sharded
-        return find_groundstate_vumps_sharded(psi, H, alg)
-    log = IterLog("VUMPS", alg.verbosity)
+        from ..parallel.sharded import InfiniteShards
+        shards = InfiniteShards(psi)
+        split, site = shards.split, shards.site
+        psi = shards.whole(psi)
+    name = "VUMPS" if shards is None else "VUMPS(mesh)"
+    log = IterLog(name, alg.verbosity)
     eps = 1.0
     it = 0
     env_guess = None
@@ -139,15 +169,20 @@ def find_groundstate_vumps(psi: InfiniteMPS, H, alg: VUMPS = VUMPS()):
             inner_tol = updatetol(eps, it)
             psi, eps_dev, env_guess, diag = _vumps_iteration_impl(
                 psi, H, alg.krylovdim, alg.eig_maxrestarts, alg.gauge_tol,
-                1e-12, inner_tol, env_guess=env_guess)
+                1e-12, inner_tol, env_guess=env_guess, split=split, site=site)
             if alg.finalize is not None:
-                psi = alg.finalize(it, psi, H) or psi
+                if shards is None:
+                    psi = alg.finalize(it, psi, H) or psi
+                else:
+                    new = alg.finalize(it, shards.state(psi), H)
+                    psi = psi if new is None else shards.whole(new)
             eps = to_host(eps_dev)[0]
             log.solver_warn(it, diag, inner_tol)
             if diag[1] > 1e-6 and alg.verbosity >= VERBOSE_WARN:
                 logger.warning(
-                    "VUMPS: iteration %d: environment GMRES residual %.4e "
-                    "(geometric-series solve not converged)", it, diag[1])
+                    "%s: iteration %d: environment GMRES residual %.4e "
+                    "(geometric-series solve not converged)", name, it,
+                    diag[1])
             if alg.verbosity >= VERBOSE_ITER:
                 log.conv(it, 0.0, eps)
             if eps < alg.tol:
@@ -160,5 +195,8 @@ def find_groundstate_vumps(psi: InfiniteMPS, H, alg: VUMPS = VUMPS()):
         # consistent mixed-gauge triple
         psi = InfiniteMPS.from_AL(psi.AL, psi.C[psi.period - 1],
                                   tol=alg.gauge_tol)
-        envs = hamiltonian_environments(psi, H, env_init=env_guess)
+        envs = hamiltonian_environments(psi, H, env_init=env_guess,
+                                        split=split)
+    if shards is not None:
+        return shards.state(psi), shards.envs(envs), eps
     return psi, envs, eps

@@ -26,27 +26,41 @@ def right_boundary(w: int, D: int, dtype, device):
     return GR
 
 
-def compute_left_envs(As, Ws, GL0):
+def compute_left_envs(As, Ws, GL0, split=None):
     """GLs[i] = environment left of site i; L+1 entries.
-    As (L, D, d, D) gauged tensors, Ws (L, w, w, d, d)."""
+    As (L, D, d, D) gauged tensors, Ws (L, w, w, d, d). With a
+    `parallel.split.BondSplit`, As and the stack are this rank's columns
+    (the boundary GL0 is whole, as is the environment the walk carries)."""
     L = As.shape[0]
-    GLs = torch.empty((L + 1,) + tuple(GL0.shape), dtype=GL0.dtype,
+    first = GL0 if split is None else split.local(GL0)
+    GLs = torch.empty((L + 1,) + tuple(first.shape), dtype=GL0.dtype,
                       device=GL0.device)
-    GLs[0] = GL0
+    GLs[0] = first
+    GL = GL0
     for i in range(L):
-        GLs[i + 1] = transfer_left_mpo(GLs[i], Ws[i], As[i], As[i])
+        if split is None:
+            GLs[i + 1] = transfer_left_mpo(GLs[i], Ws[i], As[i], As[i])
+        else:
+            GL = split.push_left(GL, Ws[i], split.gather(As[i], -1))
+            GLs[i + 1] = split.local(GL)
     return GLs
 
 
-def compute_right_envs(As, Ws, GRL):
+def compute_right_envs(As, Ws, GRL, split=None):
     """GRs[i] = environment right of site i-1; GRs[L] = boundary, GRs[i]
-    built from sites i..L-1."""
+    built from sites i..L-1. With a BondSplit, As and the stack are this
+    rank's columns (the boundary GRL is whole)."""
     L = As.shape[0]
-    GRs = torch.empty((L + 1,) + tuple(GRL.shape), dtype=GRL.dtype,
+    last = GRL if split is None else split.local(GRL)
+    GRs = torch.empty((L + 1,) + tuple(last.shape), dtype=GRL.dtype,
                       device=GRL.device)
-    GRs[L] = GRL
+    GRs[L] = last
     for i in range(L - 1, -1, -1):
-        GRs[i] = transfer_right_mpo(GRs[i + 1], Ws[i], As[i], As[i])
+        if split is None:
+            GRs[i] = transfer_right_mpo(GRs[i + 1], Ws[i], As[i], As[i])
+        else:
+            GRs[i] = split.push_right(GRs[i + 1], Ws[i],
+                                      split.gather(As[i], -1))
     return GRs
 
 

@@ -1,8 +1,8 @@
 """Device-mesh parallelism of the PyTorch port (counterpart of
 mpskit_tpu/parallel): the mesh and the sharded layouts (`mesh`), the
-products split over the mesh's bond axis (`split`), the drivers that run
-on a sharded state (`sharded`) and the entry points that gather one
-(`replicated`).
+products split over the mesh's bond axis (`split`), the conversions
+between a sharded state and the local tensors that the main loops run on
+(`sharded`) and the entry points that gather one (`replicated`).
 
 The names of `mesh` are loaded on first use: `torch.distributed.tensor`
 takes seconds to import, and a program that makes no mesh needs none of

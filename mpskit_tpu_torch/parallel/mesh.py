@@ -6,10 +6,11 @@ A sharded state holds DTensors with the JAX package's placements: the
 right virtual axis of every site tensor and the last axis of an
 environment stack over "bond", the unit cell of an InfiniteMPS optionally
 over "site". The DTensor is the layout the caller sees, as a sharded
-`jax.Array` is in the JAX package. The drivers that take one
-(`parallel/sharded.py`: one-site DMRG, VUMPS, the finite TDVP step) work
-on its local shards with explicit collectives (`parallel/split.py`); the
-other entry points gather a sharded state once (`parallel/replicated.py`).
+`jax.Array` is in the JAX package. One-site DMRG, VUMPS and the finite
+TDVP step run their own loops on its local shards
+(`parallel/sharded.py`), with explicit collectives (`parallel/split.py`);
+the other entry points gather a sharded state once
+(`parallel/replicated.py`).
 
 Usage, one process per card started by torchrun (or, with no process
 group and no torchrun, a one-rank group that `make_mesh` starts itself):

@@ -136,6 +136,25 @@ class BondSplit(MeshAxis):
         return self.all_reduce(derivatives.c_apply(GL, GR_loc,
                                                    x[..., self.sl]))
 
+    def site_matvecs(self, GL, W, GR_loc):
+        """The split site matvec and the first-restart probe that
+        `ac_apply_fast` is in the unsharded sweep: kernel K1 for a float32
+        tensor on the card, on GR gathered once per site when the probe
+        runs; elsewhere the exact matvec."""
+        def mv(x):
+            return self.ac_apply(GL, W, GR_loc, x)
+
+        if not (GL.is_cuda and GL.dtype == torch.float32):
+            return mv, mv
+        whole = []
+
+        def fast(x):
+            if not whole:
+                whole.append(self.gather(GR_loc, -1).contiguous())
+            return derivatives.ac_apply_fast(GL, W, whole[0], x)
+
+        return mv, fast
+
     def push_left(self, GL, W, A):
         """transfer_left_mpo(GL, W, A, A), GL and A whole, the result
         whole."""

@@ -12,7 +12,8 @@ them. Tolerances (JAX's own where it has them): the DMRG sweep's
 eigenvalue 1e-10 relative, fidelity |<ref|sharded>| 1e-9, eps 1e-5; the
 VUMPS iteration's energy density 1e-10; the TDVP step's 1 - |overlap|
 1e-10; full sharded DMRG 1e-8 of ED; RS-DMRG / RS-DMRG2 1e-10 of the JAX
-mesh run."""
+mesh run. A one-rank mesh gives the unsharded sweep, step and iteration
+bit for bit."""
 
 import os
 import socket
@@ -387,3 +388,19 @@ def test_make_mesh_starts_one_rank_group(runs):
     out = res[(1, 0)]
     assert bool(out["single_ok"]) and bool(out["single_cuda_raised"])
     assert bool(out["single_default"])
+
+
+@pytest.mark.parametrize("loop", ["dmrg", "tdvp", "vumps"])
+def test_one_rank_mesh_is_the_unsharded_run(runs, loop):
+    """One DMRG sweep, one TDVP step and one VUMPS iteration (its unit cell
+    over "site" too) through the BondSplit of a one-rank gloo mesh give
+    every output of the same calls with split=None bit for bit: the split
+    loops are the unsharded ones, and a collective of one rank changes no
+    value."""
+    res, _, _ = runs
+    out = res[(1, 0)]
+    keys = [k for k in out if k.startswith(f"plain_{loop}_")]
+    assert len(keys) >= 5
+    for k in keys:
+        np.testing.assert_array_equal(out["mesh_" + k[len("plain_"):]],
+                                      out[k], err_msg=k)

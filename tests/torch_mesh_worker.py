@@ -8,8 +8,10 @@ iteration, finite TDVP step, full DMRG and the layout checks. World 4
 runs on make_mesh(site=2, bond=2): the DMRG sweep, the VUMPS iteration
 and a converged VUMPS run with the unit cell over "site", and RS-DMRG /
 RS-DMRG2 with their segments over "site". World 1 starts no group:
-make_mesh starts its own. Every rank writes its results to OUT.npz. The module imports torch and
-the port only (a test module imports jax, and `tests/` is no package)."""
+make_mesh starts its own, on which the DMRG sweep, the TDVP step and the
+VUMPS iteration run through the split and with split=None. Every rank
+writes its results to OUT.npz. The module imports torch and the port only
+(a test module imports jax, and `tests/` is no package)."""
 
 import datetime
 import sys
@@ -24,8 +26,14 @@ from mpskit_tpu_torch import (
     truncdim,
 )
 from mpskit_tpu_torch.algorithms import derivatives
+from mpskit_tpu_torch.algorithms.dmrg import _dmrg_sweep_impl
 from mpskit_tpu_torch.algorithms.rsdmrg import find_groundstate_rsdmrg
-from mpskit_tpu_torch.environments.finite import stack_W
+from mpskit_tpu_torch.algorithms.tdvp import _timestep_finite
+from mpskit_tpu_torch.algorithms.vumps import _vumps_iteration_impl
+from mpskit_tpu_torch.environments.finite import (
+    compute_left_envs, compute_right_envs, left_boundary, right_boundary,
+    stack_W,
+)
 from mpskit_tpu_torch.interop import (
     finite_mps_from_numpy, infinite_mps_from_numpy,
 )
@@ -33,8 +41,9 @@ from mpskit_tpu_torch.kernels.ac_apply import ac_apply_bf16
 from mpskit_tpu_torch.parallel import (
     make_mesh, replicate, shard_env, shard_finite_mps, shard_infinite_mps,
 )
-from mpskit_tpu_torch.parallel import sharded, split
-from mpskit_tpu_torch.parallel.split import BondSplit, MeshAxis
+from mpskit_tpu_torch.parallel import split
+from mpskit_tpu_torch.parallel.sharded import FiniteShards, InfiniteShards
+from mpskit_tpu_torch.states.finitemps import support_mask
 
 G_DMRG, G_VUMPS, G_RS = 1.3, 1.4, 1.1
 
@@ -63,10 +72,12 @@ def dmrg_sweep_case(mesh, inp, tag):
     L, D = psi.length, psi.D
     H = transverse_field_ising(g=G_DMRG)
     psi_s = shard_finite_mps(psi, mesh)
-    sp = BondSplit(mesh, D)
-    ALs, ARs, AC = sharded._finite_locals(psi_s, sp, mesh)
+    shards = FiniteShards(psi_s)
+    sp = shards.split
+    ALs, ARs, AC = shards.locals(psi_s)
     Ws = stack_W(H, L, torch.float64, "cpu")
-    GRs = sharded.right_envs(sp, ARs, Ws)
+    GRs = compute_right_envs(ARs, Ws, right_boundary(
+        Ws.shape[1], D, torch.float64, "cpu"), split=sp)
     widths = set()
     plain = derivatives.ac_apply
 
@@ -77,11 +88,11 @@ def dmrg_sweep_case(mesh, inp, tag):
     derivatives.ac_apply = spy
     split.collectives = 0
     try:
-        ALs, ARs, AC, GRs, lam, eps, diag = sharded.dmrg_sweep(
-            sp, ALs, ARs, AC, Ws, GRs, 1e-8, 10, 2)
+        ALs, ARs, AC, GRs, lam, eps, diag = _dmrg_sweep_impl(
+            ALs, ARs, AC, Ws, GRs, 1e-8, 10, 2, split=sp)
     finally:
         derivatives.ac_apply = plain
-    out = sharded._finite_out(psi_s, mesh, ALs, ARs, AC)
+    out = shards.state(ALs, ARs, AC)
     return {f"{tag}_lam": lam, f"{tag}_eps": eps,
             f"{tag}_ALs": _np(out.ALs), f"{tag}_ARs": _np(out.ARs),
             f"{tag}_AC": _np(out.AC), f"{tag}_widths": sorted(widths),
@@ -97,12 +108,12 @@ def vumps_case(mesh, inp, tag, shard_sites):
                                     ("AL", "AR", "AC", "C")), device="cpu")
     H = transverse_field_ising(g=G_VUMPS, period=2)
     psi_s = shard_infinite_mps(psi, mesh, shard_sites=shard_sites)
-    sp = BondSplit(mesh, psi.D)
-    site = MeshAxis(mesh, "site") if shard_sites else None
+    shards = InfiniteShards(psi_s)
     with config.matmul_precision():
-        q, eps, envs, diag = sharded.vumps_iteration(
-            sp, site, sharded._whole_infinite(psi_s), H, 10, 2, 1e-10, 1e-8)
-    out = sharded._infinite_out(psi_s, mesh, q)
+        q, eps, envs, diag = _vumps_iteration_impl(
+            shards.whole(psi_s), H, 10, 2, 1e-10, 1e-10, 1e-8,
+            split=shards.split, site=shards.site)
+    out = shards.state(q)
     res = {f"{tag}_eps": float(eps), f"{tag}_e_env": float(envs.e_density),
            f"{tag}_placed": _same_placements(out, psi_s)}
     for f in ("AL", "AR", "AC", "C"):
@@ -214,11 +225,70 @@ def single_case():
             "single_default": config.get_mesh().mesh is None}
 
 
+def one_rank_case(mesh, inp):
+    """One DMRG sweep, one TDVP step and one VUMPS iteration through the
+    BondSplit of a one-rank mesh, and the same calls with split=None on
+    the same inputs: every output of each, under "mesh_*" and "plain_*"."""
+    res = {}
+    psi = _finite(inp, "dmrg")
+    L, D, d = psi.length, psi.D, psi.physicaldim
+    masks = torch.as_tensor(support_mask(L, d, D))
+    Ws = stack_W(transverse_field_ising(g=G_DMRG), L, torch.float64, "cpu")
+    GRL = right_boundary(Ws.shape[1], D, torch.float64, "cpu")
+    GL0 = left_boundary(Ws.shape[1], D, torch.float64, "cpu")
+    shards = FiniteShards(shard_finite_mps(psi, mesh))
+    for tag, sp in (("plain", None), ("mesh", shards.split)):
+        ALs, ARs, AC = (shards.locals(shards.psi) if sp else
+                        (psi.ALs.clone(), psi.ARs.clone(), psi.AC.clone()))
+        GRs = compute_right_envs(ARs, Ws, GRL, split=sp)
+        out = _dmrg_sweep_impl(ALs, ARs, AC, Ws, GRs, 1e-8, 10, 2,
+                               masks=masks, split=sp)
+        GLs = compute_left_envs(out[0], Ws, GL0, split=sp)
+        for k, v in zip(("ALs", "ARs", "AC", "GRs", "lam", "eps"), out):
+            res[f"{tag}_dmrg_{k}"] = _np(v)
+        res[f"{tag}_dmrg_GLs"] = _np(GLs)
+
+    psi = _finite(inp, "tdvp")
+    mk = masks.to(psi.dtype)
+    Ws = stack_W(transverse_field_ising(g=G_DMRG), L, psi.dtype, "cpu")
+    GRL = right_boundary(Ws.shape[1], D, psi.dtype, "cpu")
+    shards = FiniteShards(shard_finite_mps(psi, mesh))
+    for tag, sp in (("plain", None), ("mesh", shards.split)):
+        ALs, ARs, AC = (shards.locals(shards.psi) if sp else
+                        (psi.ALs, psi.ARs, psi.AC))
+        ALs, ARs, AC = ALs * mk, ARs * mk, AC * mk[0]
+        GRs = compute_right_envs(ARs, Ws, GRL, split=sp)
+        out = _timestep_finite(ALs, ARs, AC, Ws, GRs, 20, dt=0.05,
+                               masks=masks, split=sp)
+        for k, v in zip(("ALs", "ARs", "AC", "GRs", "err"), out):
+            res[f"{tag}_tdvp_{k}"] = _np(v)
+
+    q = infinite_mps_from_numpy(*(inp["vumps_" + f] for f in
+                                  ("AL", "AR", "AC", "C")), device="cpu")
+    H = transverse_field_ising(g=G_VUMPS, period=2)
+    shards = InfiniteShards(shard_infinite_mps(q, mesh, shard_sites=True))
+    for tag, sp, site in (("plain", None, None),
+                          ("mesh", shards.split, shards.site)):
+        with config.matmul_precision():
+            qo, eps, envs, diag = _vumps_iteration_impl(
+                shards.whole(shards.psi) if sp else q, H, 10, 2, 1e-10,
+                1e-10, 1e-8, split=sp, site=site)
+        for f in ("AL", "AR", "AC", "C"):
+            res[f"{tag}_vumps_{f}"] = _np(getattr(qo, f))
+        res.update({f"{tag}_vumps_eps": _np(eps),
+                    f"{tag}_vumps_GLs": _np(envs.GLs),
+                    f"{tag}_vumps_GRs": _np(envs.GRs),
+                    f"{tag}_vumps_e": _np(envs.e_density),
+                    f"{tag}_vumps_diag": np.asarray(diag)})
+    return res
+
+
 def main(world, rank, port, inputs, out):
     torch.set_num_threads(1)
     inp = dict(np.load(inputs))
     if world == 1:
         res = single_case()
+        res.update(one_rank_case(make_mesh(device_type="cpu"), inp))
     else:
         dist.init_process_group(
             "gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
