@@ -54,12 +54,36 @@
 // the accumulator count are template arguments picked from (w, d) so that
 // the accumulators take 96 registers a thread and are indexed only by
 // compile-time constants.
-// The general path, for any (w, d): stage 1 as a plain wgmma GEMM per a,
-// T1[a] (Dp x d*Dp, f32) = GLb[a] Xt^T, written to scratch; the middle as
-// its own pass over (x, n), in the same order of f32 sums; then stage 3 as
-// above. It writes t1 to device memory and reads it back (w*d*Dp^2 f32
-// each way), which a fused tier keeps in registers; the function and its
-// rounding points are the same.
+// The general path, for any (w, d): k1_general, two warpgroups a block and
+// one block an SM, with passes, tiles and a scratch layout of its own. Its
+// bf16 operands are stored tiled (tiled()): 128 rows of a 64-wide K chunk
+// are 16 KB in one piece, laid out as a stage of a ring holds them, so one
+// bulk copy by the TMA engine (cp.async.bulk, counted on an mbarrier; no
+// tensor map, no host work) fills a stage.
+//  1. convert: GL, GR and X to tiled bf16, a warp to two rows (or to a
+//     32 x 32 tile of Xt), 48 floats in flight a lane.
+//  2. stage 1: T1 (w*Dp x d*Dp, f32) = GLb Xt^T, one GEMM over tiles of
+//     128 x BN, a warpgroup to 64 rows, through a 6-stage ring that one
+//     thread fills four chunks ahead; a block's chunks stream through it
+//     from one tile into the next. BN (128, 96 or 64) follows from the
+//     tiles' waves over the SMs.
+//  3. the middle reads T1 once: an item of 256 or 512 points (x, n) is
+//     copied into shared memory beside W (two items' worth where they
+//     fit), and a warp sums G = 16, 12 or 8 outputs for 8 points a lane,
+//     in the fused path's order of f32 FMAs; T2 is stored tiled. Widths
+//     whose t1 and W do not fit there read them from device memory.
+//  4. stage 3: y = T2 GRb^T, the same GEMM with K = w*Dp.
+// t1 goes to device memory and back (w*d*Dp^2 f32 each way, 123 MB at
+// (D, d, w) = (768, 2, 26)), which a fused tier keeps in registers: past
+// the tiers the w*d outputs of an (x, n) tile do not fit in a block's
+// registers or shared memory. Least times at (768, 2, 26) / (768, 2, 35),
+// pass by pass: convert 57 / 76 us (bytes), stage 1 48 / 64 us (bf16
+// products), the middle 55 / 86 us (bytes / f32 FMA), stage 3 48 / 64 us:
+// 207 / 290 us, against roofline.k1_bound's 95 / 128 us for the call,
+// which lets the passes overlap. What bounds the products is L2, which
+// feeds their tiles at ~8 TB/s: a build without wgmma spends 0.10 ms of
+// stage 1's 0.13 and of stage 3's 0.16 at (768, 2, 26). The middle is
+// bound by the FMA pipes' instruction rate.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -215,6 +239,70 @@ __device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<96>(float (&d)[48], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a,
+                                               uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(acc));
 }
 
@@ -523,84 +611,486 @@ k1_kernel(const float* __restrict__ GL, const float* __restrict__ W,
 }
 
 // ---- the general path, for any (w, d) -------------------------------------
-// Stage 1: T1[a] (Dp x d*Dp, f32; row x, column t*Dp + n) = GLb[a] Xt^T, Xt
-// seen as the (d*Dp) x Dp matrix of rows (t, n).
-__device__ void stage1_general(const bf16* __restrict__ GLb,
-                               const bf16* __restrict__ Xt,
-                               float* __restrict__ T1, int w, int d, int Dp,
-                               uint32_t ring) {
-  const int mt = Dp / TILE, jt = d * Dp / TILE;
-  const size_t ldo = (size_t)d * Dp;
-  for (int item = blockIdx.x; item < w * mt * jt; item += gridDim.x) {
-    const int a = item / (mt * jt), x0 = item / jt % mt * TILE,
-              j0 = item % jt * TILE;
-    __syncthreads();
-    gemm_tile(GLb + ((size_t)a * Dp + x0) * Dp, Dp, Xt + (size_t)j0 * Dp, Dp,
-              mt, 0, mt, T1 + a * Dp * ldo, ldo, Dp, d * Dp, ring, x0, j0);
-  }
+// Its own passes, tiles, scratch layout and launch: nothing below is called
+// by the fused tiers, and it calls none of their passes. Two warpgroups a
+// block, one block an SM.
+constexpr int NTG = 256;
+constexpr int GSTAGES = 6;                  // depth of the GEMM ring
+constexpr int GAHEAD = GSTAGES - 2;         // as AHEAD above
+constexpr int GA_BYTES = 128 * 128;         // a stage's A: 128 rows of 128 B
+constexpr int GSTAGE_BYTES = 2 * GA_BYTES;  // then B: up to 128 rows
+constexpr int GRING_BYTES = GSTAGES * GSTAGE_BYTES;
+constexpr int SMEM_MAX = 232448;            // dynamic shared memory of a block
+constexpr int BARS = 1024;                  // the GEMMs' mbarriers come first
+constexpr int ROOM = SMEM_MAX - 1024 - BARS;  // for a pass, after them
+
+// The general path keeps its bf16 operands "tiled": the 64-column chunk c
+// of rows 8i..8i+7 of an R-row matrix is one 1024-byte block, 128B-swizzled
+// as swz lays out a stage of a ring; the blocks of a chunk follow each other
+// in row order, chunk after chunk. Rows m0..m0+127 of chunk c are then 16 KB
+// in one piece, which one bulk copy moves into a stage as wgmma reads it.
+// Element offset of (row, col):
+__device__ __forceinline__ size_t tiled(int row, int col, int R) {
+  return ((size_t)(col >> 6) * (R >> 3) + (row >> 3)) * 512 +
+         (swz(row & 7, (col >> 3) & 7) >> 1) + (col & 7);
 }
 
-// The middle: T2[x*d + s][b*Dp + n] = bf16(sum_{a,t} W[a,b,s,t]
-// T1[a][x][t*Dp + n]) for every (x, n) of Dp x Dp, padding included (stage 3
-// reads it against the zero padding of GRb, so it has to be finite). One
-// thread per (x, n), n fastest; the outputs g = b*d + s in groups of 8 held
-// in registers, each summed over (a, t) in the fused path's order.
-__device__ void middle_general(const float* __restrict__ T1,
-                               const float* __restrict__ W,
-                               bf16* __restrict__ T2, int w, int d, int Dp) {
-  constexpr int G = 8;
-  const int wd = w * d;
-  const size_t plane = (size_t)Dp * d * Dp, ld = (size_t)w * Dp;
-  for (size_t e = (size_t)blockIdx.x * NT + threadIdx.x; e < (size_t)Dp * Dp;
-       e += (size_t)gridDim.x * NT) {
-    const int x = (int)(e / Dp), n = (int)(e % Dp);
-    const float* t1 = T1 + (size_t)x * d * Dp + n;
-    for (int g0 = 0; g0 < wd; g0 += G) {
-      float v[G];
+__device__ __forceinline__ uint32_t bf2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar),
+               "r"(1) : "memory");
+}
+
+// arrives on `bar` and has its phase wait for `bytes` more
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
+// `bytes` (a multiple of 16) from device memory into shared memory by the
+// TMA engine, counted on `bar` when they have landed
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Pass 1: GLb (w*Dp x Dp: row a*Dp + x, column y), GRb (Dp x w*Dp: row r,
+// column b*Dp + n) and Xt (d*Dp x Dp: row t*Dp + n, column y), tiled, bf16,
+// zero past D. A warp to a work item, every warp of the grid in turn: 768
+// columns of two rows of GL or GR, each lane 6 runs of 8 loaded before any
+// is stored (the pass moves ~190 MB at w=26, D=768, so it needs many bytes
+// in flight), a run stored as 16 bytes; or a 32 x 32 tile of Xt, turned in
+// the warp's own 32 x 33 floats of `smem`.
+constexpr int CU = 3;  // runs of 8 columns a lane
+
+__device__ void convert_general(const float* __restrict__ GL,
+                                const float* __restrict__ GR,
+                                const float* __restrict__ X,
+                                bf16* __restrict__ GLb, bf16* __restrict__ GRb,
+                                bf16* __restrict__ Xt, int w, int d, int D,
+                                int Dp, float* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cs = (Dp + 256 * CU - 1) / (256 * CU);  // pieces of a row
+  const int rows = w * Dp * cs, nt = Dp / 32;
+  const int items = rows + d * nt * nt;
+  const bool vec = (D & 3) == 0 && ((uintptr_t)GL & 15) == 0 &&
+                   ((uintptr_t)GR & 15) == 0;
+  float(*tile)[33] = reinterpret_cast<float(*)[33]>(smem + warp * 32 * 33);
+  for (int item = blockIdx.x * (NTG / 32) + warp; item < items;
+       item += gridDim.x * (NTG / 32)) {
+    if (item < rows) {
+      // rows r0 and r0 + 1 of slab z (Dp is even), 256*CU columns of each
+      const int zr = item / cs * 2, c0 = item % cs * 256 * CU;  // z*Dp + r0
+      const int z = zr / Dp, r0 = zr - z * Dp;
+      const float* src = (z < w ? GL + (size_t)z * D * D
+                                : GR + (size_t)(z - w) * D * D) +
+                         (size_t)r0 * D;
+      float v[2 * CU][8];  // run k: row r0 + k / CU
 #pragma unroll
-      for (int j = 0; j < G; ++j) v[j] = 0.f;
-      for (int a = 0; a < w; ++a) {
-        for (int t = 0; t < d; ++t) {
-          const float u = t1[a * plane + (size_t)t * Dp];
+      for (int k = 0; k < 2 * CU; ++k) {
+        const int r = r0 + k / CU, c = c0 + 256 * (k % CU) + 8 * lane;
+        const float* run = src + (size_t)(k / CU) * D + c;
+        if (vec) {
 #pragma unroll
-          for (int j = 0; j < G; ++j) {
-            const int g = g0 + j, b = g / d, s = g - b * d;
-            if (g < wd) v[j] = fmaf(__ldg(W + ((a * w + b) * d + s) * d + t),
-                                    u, v[j]);
+          for (int h = 0; h < 8; h += 4) {
+            const float4 f =
+                r < D && c + h < D
+                    ? __ldg(reinterpret_cast<const float4*>(run + h))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+            v[k][h] = f.x, v[k][h + 1] = f.y, v[k][h + 2] = f.z,
+            v[k][h + 3] = f.w;
           }
+        } else {
+#pragma unroll
+          for (int h = 0; h < 8; ++h)
+            v[k][h] = r < D && c + h < D ? __ldg(run + h) : 0.f;
         }
       }
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        const int g = g0 + j, b = g / d, s = g - b * d;
-        if (g < wd)
-          T2[(size_t)(x * d + s) * ld + (size_t)b * Dp + n] =
-              __float2bfloat16_rn(v[j]);
+      for (int k = 0; k < 2 * CU; ++k) {
+        const int r = r0 + k / CU, c = c0 + 256 * (k % CU) + 8 * lane;
+        if (c >= Dp) continue;
+        bf16* dst = z < w ? GLb + tiled(zr + k / CU, c, w * Dp)
+                          : GRb + tiled(r, (z - w) * Dp + c, Dp);
+        *reinterpret_cast<uint4*>(dst) =
+            make_uint4(bf2(v[k][0], v[k][1]), bf2(v[k][2], v[k][3]),
+                       bf2(v[k][4], v[k][5]), bf2(v[k][6], v[k][7]));
+      }
+    } else {
+      // Xt[t*Dp + n][y] = X[y][t][n]: read along n, write runs of 8 y
+      const int i = item - rows, t = i / (nt * nt);
+      const int y0 = i / nt % nt * 32, n0 = i % nt * 32;
+#pragma unroll 8
+      for (int k = 0; k < 32; ++k) {
+        const int y = y0 + k, n = n0 + lane;
+        tile[k][lane] = y < D && n < D ? X[((size_t)y * d + t) * D + n] : 0.f;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int uu = lane + 32 * q, rr = uu >> 2, cc = (uu & 3) * 8;
+        const uint4 o = make_uint4(
+            bf2(tile[cc][rr], tile[cc + 1][rr]),
+            bf2(tile[cc + 2][rr], tile[cc + 3][rr]),
+            bf2(tile[cc + 4][rr], tile[cc + 5][rr]),
+            bf2(tile[cc + 6][rr], tile[cc + 7][rr]));
+        *reinterpret_cast<uint4*>(Xt + tiled(t * Dp + n0 + rr, y0 + cc,
+                                             d * Dp)) = o;
+      }
+      __syncwarp();  // done with `tile` before the next item fills it
+    }
+  }
+}
+
+// C (f32) = A B^T over K = 64*nk, A (M rows) and B (N rows) bf16 and
+// tiled; entries of C past (rows, cols) are not stored.
+struct Gemm {
+  const bf16* A;
+  const bf16* B;
+  int M, N, nk;
+  float* C;
+  size_t ldc;
+  int rows, cols;
+};
+
+// The GEMM over tiles of 128 x BN, dealt out over the blocks: warpgroup g
+// takes rows 64g.. of the tile. The block's chunks, (its i-th tile, c) in
+// order, stream through one ring of 6 stages whatever tile they belong to,
+// so the next tile's first chunks load while this one's products finish
+// and its accumulators are stored. Thread 0 fills a stage with two bulk
+// copies (A's 128 rows and B's BN, fewer at the edge: the rest of the stage
+// is left as it was and feeds only rows and columns that are not stored),
+// counted on the stage's mbarrier in `bars`; the ring's waits are otherwise
+// those of gemm_tile.
+template <int BN>
+__device__ void gemm_general(const Gemm& g, uint32_t ring, uint32_t bars) {
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int ntl = (g.N + BN - 1) / BN, tiles = (g.M + 127) / 128 * ntl;
+  const int mine = (int)blockIdx.x < tiles
+                       ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = mine * g.nk;
+
+  auto load = [&](int q) {
+    const int i = q / g.nk, c = q - i * g.nk;
+    const int tile = blockIdx.x + i * gridDim.x;
+    const int m0 = tile / ntl * 128, n0 = tile % ntl * BN;
+    const int am = g.M - m0 < 128 ? g.M - m0 : 128;
+    const int bn = g.N - n0 < BN ? g.N - n0 : BN;
+    const uint32_t st = ring + (q % GSTAGES) * GSTAGE_BYTES;
+    const uint32_t bar = bars + 8 * (q % GSTAGES);
+    mbar_expect(bar, (am + bn) * 128);
+    bulk_load(st, g.A + ((size_t)c * (g.M >> 3) + (m0 >> 3)) * 512, am * 128,
+              bar);
+    bulk_load(st + GA_BYTES, g.B + ((size_t)c * (g.N >> 3) + (n0 >> 3)) * 512,
+              bn * 128, bar);
+  };
+
+  float acc[BN / 2];  // set by the first wgmma of each tile
+  const uint32_t arows = wg * 64 * 128;
+  const bool pairs = (g.ldc & 1) == 0;
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+
+  // the previous pass's use of this shared memory comes before the copies
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0)
+    for (int q = 0; q < GAHEAD && q < total; ++q) load(q);
+  int q = 0;
+  for (int i = 0; i < mine; ++i) {
+    for (int c = 0; c < g.nk; ++c, ++q) {
+      mbar_wait(bars + 8 * (q % GSTAGES), (q / GSTAGES) & 1);
+      // everyone has seen the group of chunk q - 2 complete: its stage
+      // takes chunk q + GAHEAD
+      __syncthreads();
+      if (tid == 0 && q + GAHEAD < total) load(q + GAHEAD);
+      const uint32_t st = ring + (q % GSTAGES) * GSTAGE_BYTES;
+      fence_regs(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)
+        wgmma<BN>(acc, desc(st + arows + kk * 32),
+                  desc(st + GA_BYTES + kk * 32), c > 0 || kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      fence_regs(acc);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+
+    const int tile = blockIdx.x + i * gridDim.x;
+    const int m0 = tile / ntl * 128 + wg * 64 + warp * 16 + (lane >> 2);
+    const int n0 = tile % ntl * BN + 2 * (lane & 3);
+#pragma unroll
+    for (int r = 0; r < BN / 2; r += 2) {
+      const int m = m0 + 8 * ((r >> 1) & 1), col = n0 + 8 * (r >> 2);
+      if (m >= g.rows) continue;
+      float* o = g.C + (size_t)m * g.ldc + col;
+      if (pairs && col + 1 < g.cols) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[r], acc[r + 1]);
+      } else {
+        if (col < g.cols) o[0] = acc[r];
+        if (col + 1 < g.cols) o[1] = acc[r + 1];
       }
     }
   }
 }
 
-__global__ void __launch_bounds__(NT, 1)
+__device__ void gemm_general_bn(int bn, const Gemm& g, uint32_t ring,
+                                uint32_t bars) {
+  if (bn == 128)
+    gemm_general<128>(g, ring, bars);
+  else if (bn == 96)
+    gemm_general<96>(g, ring, bars);
+  else
+    gemm_general<64>(g, ring, bars);
+}
+
+// The middle: T2[x*d + s][b*Dp + n] = bf16(sum_{a,t} W[a,b,s,t]
+// T1[a][x][t*Dp + n]) for every (x, n) of Dp x Dp, padding included (stage
+// 3 reads it against the zero padding of GRb, so it has to be finite), each
+// sum over k = a*d + t in the fused path's order. An item is 256*strips
+// points e = x*Dp + n; their t1[k] are copied once from T1 into shared
+// memory, in nbuf buffers (with two, the next item's copies run while this
+// one is summed); W sits there too as sW[k][g] (g = b*d + s; zero from
+// wd up to wdp, a multiple of G). A warp takes a unit, a strip of 256
+// points and a group of G outputs: each lane 8 points (two runs of 4, 128
+// apart, so the warp's reads of t1 are contiguous) and all G outputs, so
+// that each t1 value read from shared memory serves G outputs and each W
+// value 8 points; it reads the next k while it sums this one.
+template <int G>
+__device__ void middle_general(const float* __restrict__ T1,
+                               const float* __restrict__ W,
+                               bf16* __restrict__ T2, int w, int d, int Dp,
+                               float* smem, int strips, int nbuf) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wd = w * d, groups = (wd + G - 1) / G, wdp = groups * G;
+  const int P = 256 * strips, units = groups * strips, R2 = d * Dp;
+  const size_t bstep = (size_t)(Dp >> 6) * (R2 >> 3) * 512;  // T2 per b
+  float* sW = smem;
+  float* buf = smem + wd * wdp;
+  for (int i = tid; i < wd * wdp; i += NTG) {
+    const int k = i / wdp, g = i - k * wdp;
+    const int a = k / d, t = k - a * d, b = g / d, s = g - b * d;
+    sW[i] = g < wd ? W[((a * w + b) * d + s) * d + t] : 0.f;
+  }
+  const int items = Dp * Dp / P;
+  const size_t ld1 = (size_t)d * Dp;
+  const int quads = P / 4, lq = tid % quads;  // this thread's copies
+
+  auto load = [&](int item, int half) {
+    float* dst = buf + half * wd * P + 4 * lq;
+    const int e = item * P + 4 * lq, x = e / Dp, n = e - x * Dp;
+    for (int k = tid / quads; k < wd; k += NTG / quads) {
+      const int a = k / d, t = k - a * d;
+      cp_async16(smem_u32(dst + k * P),
+                 T1 + ((size_t)a * Dp + x) * ld1 + (size_t)t * Dp + n);
+    }
+  };
+  auto coefs = [&](int k, int grp, float(&cf)[G]) {
+#pragma unroll
+    for (int j = 0; j < G; j += 4)
+      *reinterpret_cast<float4*>(cf + j) =
+          *reinterpret_cast<const float4*>(sW + k * wdp + grp * G + j);
+  };
+
+  if (nbuf == 2 && (int)blockIdx.x < items) load(blockIdx.x, 0);
+  cp_async_commit();
+  int it = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++it) {
+    const int half = nbuf == 2 ? it & 1 : 0;
+    if (nbuf == 1)
+      load(item, 0);
+    else if (item + (int)gridDim.x < items)
+      load(item + gridDim.x, half ^ 1);
+    cp_async_commit();
+    if (nbuf == 2)
+      cp_async_wait<1>();  // this thread's copies of `item`
+    else
+      cp_async_wait<0>();
+    __syncthreads();  // everyone's, and sW
+    for (int u = warp; u < units; u += NTG / 32) {
+      const int strip = u % strips, grp = u / strips;
+      const float* tp = buf + half * wd * P + strip * 256 + 4 * lane;
+      float acc[G][8];
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int p = 0; p < 8; ++p) acc[j][p] = 0.f;
+      float4 u0 = *reinterpret_cast<const float4*>(tp);
+      float4 u1 = *reinterpret_cast<const float4*>(tp + 128);
+      float cf[G];
+      coefs(0, grp, cf);
+      for (int k = 0; k < wd; ++k) {
+        const int kn = k + 1 < wd ? k + 1 : k;
+        const float4 n0 = *reinterpret_cast<const float4*>(tp + kn * P);
+        const float4 n1 = *reinterpret_cast<const float4*>(tp + kn * P + 128);
+        float cn[G];
+        coefs(kn, grp, cn);
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          acc[j][0] = fmaf(cf[j], u0.x, acc[j][0]);
+          acc[j][1] = fmaf(cf[j], u0.y, acc[j][1]);
+          acc[j][2] = fmaf(cf[j], u0.z, acc[j][2]);
+          acc[j][3] = fmaf(cf[j], u0.w, acc[j][3]);
+          acc[j][4] = fmaf(cf[j], u1.x, acc[j][4]);
+          acc[j][5] = fmaf(cf[j], u1.y, acc[j][5]);
+          acc[j][6] = fmaf(cf[j], u1.z, acc[j][6]);
+          acc[j][7] = fmaf(cf[j], u1.w, acc[j][7]);
+        }
+        u0 = n0, u1 = n1;
+#pragma unroll
+        for (int j = 0; j < G; ++j) cf[j] = cn[j];
+      }
+      // T2 at tiled(x*d + s, b*Dp + n, R2) for g = b*d + s, b and s
+      // stepped along with g
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = item * P + strip * 256 + 128 * h + 4 * lane;
+        const int x = e / Dp, n = e - x * Dp;
+        bf16* const tn = T2 + (size_t)(n >> 6) * (R2 >> 3) * 512 + (n & 7);
+        int b = grp * G / d, s = grp * G - b * d;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const int row = x * d + s;
+          if (grp * G + j < wd)
+            *reinterpret_cast<uint2*>(
+                tn + (size_t)b * bstep + (row >> 3) * 512 + (row & 7) * 64 +
+                ((((n >> 3) & 7) ^ (row & 7)) << 3)) =
+                make_uint2(bf2(acc[j][4 * h], acc[j][4 * h + 1]),
+                           bf2(acc[j][4 * h + 2], acc[j][4 * h + 3]));
+          if (++s == d) s = 0, ++b;
+        }
+      }
+    }
+    __syncthreads();  // everyone is done with this buffer before it refills
+  }
+}
+
+// The middle for widths whose t1 and W do not fit in shared memory: a
+// thread to a (group of MW outputs, point (x, n)), the points of a group
+// on neighbouring threads; each reads the point's t1[k] from T1 and W from
+// device memory.
+constexpr int MW = 8;
+
+__device__ void middle_wide(const float* __restrict__ T1,
+                            const float* __restrict__ W,
+                            bf16* __restrict__ T2, int w, int d, int Dp) {
+  const int wd = w * d, groups = (wd + MW - 1) / MW;
+  const size_t ld1 = (size_t)d * Dp, points = (size_t)Dp * Dp;
+  for (size_t i = (size_t)blockIdx.x * NTG + threadIdx.x; i < groups * points;
+       i += (size_t)gridDim.x * NTG) {
+    const int g0 = (int)(i / points) * MW, e = (int)(i % points);
+    const int x = e / Dp, n = e - x * Dp;
+    const float* t1 = T1 + (size_t)x * ld1 + n;
+    float v[MW] = {};
+    for (int a = 0; a < w; ++a)
+      for (int t = 0; t < d; ++t) {
+        const float u = __ldg(t1 + (size_t)a * Dp * ld1 + (size_t)t * Dp);
+#pragma unroll
+        for (int j = 0; j < MW; ++j) {
+          const int g = g0 + j, b = g / d, s = g - b * d;
+          if (g < wd)
+            v[j] = fmaf(__ldg(W + ((a * w + b) * d + s) * d + t), u, v[j]);
+        }
+      }
+#pragma unroll
+    for (int j = 0; j < MW; ++j) {
+      const int g = g0 + j, b = g / d, s = g - b * d;
+      if (g < wd)
+        T2[tiled(x * d + s, b * Dp + n, d * Dp)] = __float2bfloat16_rn(v[j]);
+    }
+  }
+}
+
+// The middle's shape: G outputs a unit, 256*strips points an item, nbuf
+// buffers of them; g = 0 for middle_wide.
+struct Middle {
+  int g, strips, nbuf;
+};
+
+size_t middle_bytes(int wd, const Middle& m) {
+  if (m.g == 0) return 0;
+  const size_t wdp = (wd + m.g - 1) / m.g * m.g;
+  return sizeof(float) * (wd * wdp + (size_t)m.nbuf * wd * 256 * m.strips);
+}
+
+// Of the shapes that fit, the one with the least time a point: the rounds
+// of units over the 8 warps, times G, over strips, a third more with one
+// buffer (the copies then wait for the sums); middle_wide if none fits.
+Middle middle_shape(int wd) {
+  Middle best = {0, 0, 0};
+  long best_cost = -1;
+  const int gs[] = {16, 12, 8}, ss[] = {2, 1}, bs[] = {2, 1};
+  for (int g : gs)
+    for (int strips : ss)
+      for (int nbuf : bs) {
+        const Middle m = {g, strips, nbuf};
+        if (middle_bytes(wd, m) > ROOM) continue;
+        const long units = (long)(wd + g - 1) / g * strips;
+        const long cost =
+            (units + 7) / 8 * g * (nbuf == 2 ? 3 : 4) * (2 / strips);
+        if (best_cost < 0 || cost < best_cost) best = m, best_cost = cost;
+      }
+  return best;
+}
+
+__global__ void __launch_bounds__(NTG, 1)
 k1_general(const float* __restrict__ GL, const float* __restrict__ W,
            const float* __restrict__ GR, const float* __restrict__ X,
            float* __restrict__ Y, bf16* __restrict__ GLb,
            bf16* __restrict__ GRb, bf16* __restrict__ Xt,
            bf16* __restrict__ T2, float* __restrict__ T1, int w, int d,
-           int D, int Dp) {
+           int D, int Dp, int bn1, int bn3, Middle mid) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
-  const uint32_t ring = smem_u32(smem);
+  const uint32_t bars = smem_u32(smem);  // stage 1's, then stage 3's
+  const uint32_t ring = bars + BARS;
+  float* work = reinterpret_cast<float*>(smem + BARS);
   cg::grid_group grid = cg::this_grid();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * GSTAGES; ++i) mbar_init(bars + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
-  convert(GL, GR, X, GLb, GRb, Xt, w, d, D, Dp,
-          reinterpret_cast<float(*)[33]>(smem));
+  convert_general(GL, GR, X, GLb, GRb, Xt, w, d, D, Dp, work);
   grid.sync();
-  stage1_general(GLb, Xt, T1, w, d, Dp, ring);
+  // stage 1: T1 (w*Dp x d*Dp, row-major; row a*Dp + x, column t*Dp + n) =
+  // GLb Xt^T
+  const Gemm g1 = {GLb, Xt, w * Dp, d * Dp, Dp / TILE, T1, (size_t)d * Dp,
+                   w * Dp, d * Dp};
+  gemm_general_bn(bn1, g1, ring, bars);
   grid.sync();
-  middle_general(T1, W, T2, w, d, Dp);
+  if (mid.g == 16)
+    middle_general<16>(T1, W, T2, w, d, Dp, work, mid.strips, mid.nbuf);
+  else if (mid.g == 12)
+    middle_general<12>(T1, W, T2, w, d, Dp, work, mid.strips, mid.nbuf);
+  else if (mid.g == 8)
+    middle_general<8>(T1, W, T2, w, d, Dp, work, mid.strips, mid.nbuf);
+  else
+    middle_wide(T1, W, T2, w, d, Dp);
   grid.sync();
-  stage3(T2, GRb, Y, w, d, D, Dp, ring);
+  // stage 3: y ((D*d) x D of the (d*Dp) x Dp view, row x*d + s) = T2 GRb^T
+  // over K = (b, n)
+  const Gemm g3 = {T2, GRb, d * Dp, Dp, w * Dp / TILE, Y, (size_t)D, D * d,
+                   D};
+  gemm_general_bn(bn3, g3, ring, bars + 8 * GSTAGES);
 }
 
 // ---- host side --------------------------------------------------------------
@@ -621,6 +1111,7 @@ bool fused(int w, int d) {
 // The scratch of one launch, carved from one allocation at `base`: bf16
 // GLb and GRb (w, Dp, Dp), Xt (d, Dp, Dp), T2 (d*Dp, w*Dp), and for the
 // general path f32 T1 (w, Dp, d*Dp); each starts on a 256-byte boundary.
+// The general path lays its bf16 buffers out tiled, in the same sizes.
 struct Scratch {
   bf16 *GLb, *GRb, *Xt, *T2;
   float* T1;
@@ -695,18 +1186,58 @@ cudaError_t launch_fused(const float* GL, const float* W, const float* GR,
                      items1 > items3 ? items1 : items3, args, st, resident);
 }
 
+// The width of a GEMM's 128-row tiles, of 128, 96 and 64: the least waves
+// over `blocks` times the time of a tile, taken as BN plus 32 for the loads
+// of its A rows, which a narrower tile spreads over fewer products.
+int tile_width(int M, int N, int blocks) {
+  const int widths[] = {128, 96, 64};
+  int best = 128;
+  long best_cost = -1;
+  for (int bn : widths) {
+    const long tiles = (long)((M + 127) / 128) * ((N + bn - 1) / bn);
+    const long cost = (tiles + blocks - 1) / blocks * (bn + 32);
+    if (best_cost < 0 || cost < best_cost) best = bn, best_cost = cost;
+  }
+  return best;
+}
+
+// Launches k1_general cooperatively on stream `st`: one block on every SM
+// (`resident` records their number per device; 0: not known yet), the
+// tiles of both GEMMs and the middle's shape picked from (w, d, Dp).
 cudaError_t launch_general(const float* GL, const float* W, const float* GR,
                            const float* X, float* Y, const Scratch& s, int w,
                            int d, int D, int Dp, cudaStream_t st) {
   static int resident[MAX_DEVICES];
-  // stage 1's items outnumber stage 3's by w
-  const int items = w * (Dp / TILE) * (d * Dp / TILE);
+  const void* kernel = (const void*)k1_general;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                          NTG, SMEM_MAX);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm * sms <= 0) return cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
+  }
+  const int blocks = resident[dev];
+  Middle mid = middle_shape(w * d);
+  const size_t mb = middle_bytes(w * d, mid);
+  const size_t bytes = 1024 + BARS + (mb > GRING_BYTES ? mb : GRING_BYTES);
+  int bn1 = tile_width(w * Dp, d * Dp, blocks);
+  int bn3 = tile_width(d * Dp, Dp, blocks);
   bf16 *GLb = s.GLb, *GRb = s.GRb, *Xt = s.Xt, *T2 = s.T2;
   float* T1 = s.T1;
-  void* args[] = {&GL,  &W,  &GR, &X, &Y, &GLb, &GRb,
-                  &Xt, &T2, &T1, &w, &d, &D,   &Dp};
-  return cooperative((const void*)k1_general, 1024 + GEMM_BYTES, items, args,
-                     st, resident);
+  void* args[] = {&GL, &W,  &GR, &X, &Y, &GLb, &GRb, &Xt,  &T2,
+                  &T1, &w,  &d,  &D, &Dp, &bn1, &bn3, &mid};
+  return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(NTG), args,
+                                     bytes, st);
 }
 
 }  // namespace

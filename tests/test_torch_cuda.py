@@ -48,7 +48,8 @@ def _k1_inputs(D, d, w, seed):
                                    (64, 2, 3), (520, 2, 3), (256, 3, 5),
                                    (130, 2, 5), (128, 2, 9), (128, 3, 2),
                                    (100, 3, 4), (64, 2, 13), (70, 3, 9),
-                                   (130, 4, 3)])
+                                   (130, 4, 3), (768, 2, 26), (768, 2, 35),
+                                   (200, 2, 26), (64, 2, 60), (64, 4, 45)])
 def test_k1_matches_plain_on_card(D, d, w):
     """K1 against its plain version (same rounding points: 1e-3 bounds the
     f32 summation-order differences) at the main path's width, at D that
@@ -56,7 +57,11 @@ def test_k1_matches_plain_on_card(D, d, w):
     a tile edge), at a single tile (64), at the spin-1 Heisenberg shape
     (w=5, d=3), once in each other fused tier of the CUDA source's
     K1_TIERS, and on the general path that every other (w, d) takes (past
-    the widest tier at d = 2 and 3, and at d = 4)."""
+    the widest tier at d = 2 and 3, and at d = 4), there also at the J1-J2
+    cylinder's shapes (D=768 at the program's w=26 and the reference's
+    w=35), at D=200, off the edge of its 128-row and 96-wide tiles, and at
+    widths whose middle keeps one t1 buffer (w=60) or none (w=45, d=4) in
+    shared memory."""
     _need_card()
     GL, W, GR, x = _k1_inputs(D, d, w, seed=D)
     before = k1.launches
@@ -96,11 +101,13 @@ def test_k1_general_path_is_counted_apart():
 
 
 @pytest.mark.cuda
-def test_k1_is_deterministic():
+@pytest.mark.parametrize("D,d,w", [(512, 2, 3), (200, 2, 26)])
+def test_k1_is_deterministic(D, d, w):
     """No atomics and no split of a contracted index: two launches on the
-    same inputs give bit-identical results."""
+    same inputs give bit-identical results, on a fused tier and on the
+    general path."""
     _need_card()
-    GL, W, GR, x = _k1_inputs(512, 2, 3, seed=1)
+    GL, W, GR, x = _k1_inputs(D, d, w, seed=1)
     y1 = k1.ac_apply_bf16(GL, W, GR, x)
     y2 = k1.ac_apply_bf16(GL, W, GR, x)
     torch.cuda.synchronize()
