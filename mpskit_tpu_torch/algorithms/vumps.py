@@ -28,6 +28,7 @@ from ..states.infinitemps import InfiniteMPS
 from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog, logger
 from ..utils.sync import to_host
+from ..utils.trace import span
 from .derivatives import ac_apply, c_apply
 from .unionalg import Chainable
 
@@ -130,21 +131,24 @@ def _vumps_iteration_impl(psi: InfiniteMPS, H, m: int, restarts: int,
     the environment walk and the local solves split over "bond", and with
     `site` (a `MeshAxis` over "site") each site rank solves its own block
     of the unit cell and the solutions are all-gathered."""
-    envs = hamiltonian_environments(psi, H, tol=env_tol_static,
-                                    env_init=env_guess, split=split)
-    Ws = stack_W(H, psi.period, psi.dtype, psi.device)
-    sites = None if site is None else site.block(psi.period, "sites")
-    ACs, conv_ac = _solve_acs(envs, Ws, psi.AC, m, restarts, inner_tol,
-                              split, sites)
-    Cs, conv_c = _solve_cs(envs, psi.C, m, restarts, inner_tol, split, sites)
-    n_unconv = sum(not c for c in conv_ac + conv_c)
-    if site is not None:
-        ACs, Cs = site.gather(ACs, 0), site.gather(Cs, 0)
-        n_unconv = int(to_host(site.all_reduce(torch.tensor(
-            float(n_unconv), dtype=torch.float64, device=psi.device)))[0])
-    diag = (n_unconv, envs.resid)
-    psi_new, eps = _regauge(ACs, Cs, A_mask, C_mask)
-    return psi_new, eps, envs, diag
+    with span("iteration", "vumps"):
+        envs = hamiltonian_environments(psi, H, tol=env_tol_static,
+                                        env_init=env_guess, split=split)
+        Ws = stack_W(H, psi.period, psi.dtype, psi.device)
+        sites = None if site is None else site.block(psi.period, "sites")
+        ACs, conv_ac = _solve_acs(envs, Ws, psi.AC, m, restarts, inner_tol,
+                                  split, sites)
+        Cs, conv_c = _solve_cs(envs, psi.C, m, restarts, inner_tol, split,
+                               sites)
+        n_unconv = sum(not c for c in conv_ac + conv_c)
+        if site is not None:
+            ACs, Cs = site.gather(ACs, 0), site.gather(Cs, 0)
+            n_unconv = int(to_host(site.all_reduce(torch.tensor(
+                float(n_unconv), dtype=torch.float64,
+                device=psi.device)))[0])
+        diag = (n_unconv, envs.resid)
+        psi_new, eps = _regauge(ACs, Cs, A_mask, C_mask)
+        return psi_new, eps, envs, diag
 
 
 def find_groundstate_vumps(psi: InfiniteMPS, H, alg: VUMPS = VUMPS()):

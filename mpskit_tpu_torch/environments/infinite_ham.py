@@ -23,6 +23,7 @@ import torch
 from ..linalg.gmres import linsolve_info
 from ..operators.mpo import DIAG_IDENTITY, DIAG_ZERO, MPOHamiltonian
 from ..states.infinitemps import InfiniteMPS
+from ..utils.trace import span
 from .finite import stack_W
 
 # Krylov shape of the geometric-series solves (same values as the JAX
@@ -207,11 +208,12 @@ def hamiltonian_environments(psi: InfiniteMPS, H: MPOHamiltonian,
     2.5e-4 relative at D=256 float32, within 15 % of this model): with an
     unreachable tolerance every solve would spend its stall-detection
     cycles finding the floor. `split`: see `calc_envs_paired`."""
-    GL0 = None if env_init is None else env_init.GLs
-    GR0 = None if env_init is None else env_init.GRs
-    rdt = psi.AL.real.dtype if psi.AL.is_complex() else psi.dtype
-    tol = max(float(tol),
-              10 * math.sqrt(2 * psi.D * psi.D) * torch.finfo(rdt).eps)
-    GLs, GRs, eL, r = calc_envs_paired(psi, H, tol, GL_init=GL0, GR_init=GR0,
-                                       split=split)
-    return InfiniteHamEnv(GLs, GRs, eL.real / psi.period, r)
+    with span("envs", "infinite"):
+        GL0 = None if env_init is None else env_init.GLs
+        GR0 = None if env_init is None else env_init.GRs
+        rdt = psi.AL.real.dtype if psi.AL.is_complex() else psi.dtype
+        tol = max(float(tol),
+                  10 * math.sqrt(2 * psi.D * psi.D) * torch.finfo(rdt).eps)
+        GLs, GRs, eL, r = calc_envs_paired(psi, H, tol, GL_init=GL0,
+                                           GR_init=GR0, split=split)
+        return InfiniteHamEnv(GLs, GRs, eL.real / psi.period, r)

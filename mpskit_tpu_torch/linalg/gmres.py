@@ -12,6 +12,10 @@ complex operator) numpy, as `lanczos.py` does for its Ritz solve. Only the
 m solution coefficients travel back to the device. Every threshold keeps
 the working dtype's eps, so a float32 solve stalls out where the JAX
 package's does.
+
+An open recording (utils/trace.py) counts each solve's operator
+applications (the Arnoldi steps, the first residual and each cycle's true
+residual) as `gmres_op` inside the solve's `gmres` span.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from ..utils.sync import to_host, to_host_array
+from ..utils.trace import count, span
 from ..utils.tree import add, norm
 from .basis import basis_combine, basis_inner_all, basis_zeros
 
@@ -130,17 +135,19 @@ def gmres_restarted(op: Callable, b, x0, tol: float, restart: int = 30,
     n_tot = b.numel() or 1
     arm_rel = 50.0 * math.sqrt(n_tot) * _eps(b)
     r = add(b, op(x0), alpha=-1.0)
+    n_ops = 1
     bnorm, rnorm = to_host(norm(b), norm(r))
     bnorm = max(bnorm, _TINY)
     abs_tol = tol * bnorm
     arm_abs = arm_rel * bnorm
     x, relres, it, stalls = x0, rnorm / bnorm, 0, 0
     while it < maxiter and relres > tol and stalls < 2:
-        dx, _, _ = _gmres_cycle_adaptive(op, r, rnorm, restart, 0.5 * abs_tol,
-                                         passes=1, stall_exit=stall_exit,
-                                         stall_arm=arm_abs)
+        dx, _, steps = _gmres_cycle_adaptive(
+            op, r, rnorm, restart, 0.5 * abs_tol, passes=1,
+            stall_exit=stall_exit, stall_arm=arm_abs)
         x = add(x, dx)
         r = add(b, op(x), alpha=-1.0)
+        n_ops += steps + 1
         rnorm = to_host(norm(r))[0]
         prev, relres = relres, rnorm / bnorm
         if relres < 0.7 * prev:
@@ -148,6 +155,7 @@ def gmres_restarted(op: Callable, b, x0, tol: float, restart: int = 30,
         elif relres < arm_rel:
             stalls += 1
         it += 1
+    count("gmres_op", n_ops)
     return x, relres, it
 
 
@@ -166,15 +174,16 @@ def linsolve_info(matvec: Callable, b, x0=None, a0=1.0, a1=1.0, tol=1e-12,
     ||(a0 + a1 A) x - b|| / ||b|| as a host float. The JAX package spends
     one more matvec on it; here it is the norm that the last cycle of
     `gmres_restarted` read for its exit test, of the same residual."""
-    if x0 is None:
-        x0 = b
+    with span("gmres"):
+        if x0 is None:
+            x0 = b
 
-    def op(x):
-        return add(a0 * x, matvec(x), alpha=a1)
+        def op(x):
+            return add(a0 * x, matvec(x), alpha=a1)
 
-    x, relres, _ = gmres_restarted(op, b, x0, tol, restart, maxiter,
-                                   stall_exit=stall_exit)
-    return x, relres
+        x, relres, _ = gmres_restarted(op, b, x0, tol, restart, maxiter,
+                                       stall_exit=stall_exit)
+        return x, relres
 
 
 def _leaves(x):

@@ -12,6 +12,11 @@ Each span sits inside the function whose work it measures:
 
     sweep   algorithms/dmrg.py, dmrg2.py: one sweep
     step    algorithms/tdvp.py: one finite TDVP step
+    iteration  algorithms/vumps.py::_vumps_iteration_impl, `kind` vumps:
+            one VUMPS iteration
+    envs    environments/infinite_ham.py::hamiltonian_environments, `kind`
+            infinite: the infinite environments' level-by-level walk
+    gmres   linalg/gmres.py::linsolve_info: one linear solve
     eigsh   linalg/lanczos.py::eigsh_smallest
     expm    linalg/expm.py::expm_multiply_err
     matvec  algorithms/derivatives.py, `kind` exact, zero-site or
@@ -29,7 +34,9 @@ Each span sits inside the function whose work it measures:
 
 A replayed graph runs no Python, so the spans of its work are counted
 instead: `count(name, n)` adds n to `rec.counts[name]` with no span
-(`linalg/lanczos.py` counts a replayed factorization's m matvecs).
+(`linalg/lanczos.py` counts a replayed factorization's m matvecs). A
+GMRES solve's operator applications are counted the same way, with no
+span each: `gmres_op` (`linalg/gmres.py`, n at the end of each solve).
 
 The program's counters are plain module integers beside the code they
 count: `utils.sync.count` (host syncs), `kernels.ac_apply.launches`

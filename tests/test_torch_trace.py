@@ -1,5 +1,6 @@
 """The port's spans (mpskit_tpu_torch/utils/trace.py): what a recording
-holds after a tiny DMRG, DMRG2 or TDVP run on the CPU, how the spans nest,
+holds after a tiny DMRG, DMRG2, TDVP or VUMPS run on the CPU, how the
+spans nest,
 that they agree with the program's counters and with torch.profiler's
 clock, and that recording changes no result. One test needs a CUDA card
 (marker `cuda`) and skips without one. The file imports no jax."""
@@ -11,7 +12,8 @@ import pytest
 import torch
 
 import mpskit_tpu_torch as mt
-from mpskit_tpu_torch.algorithms import dmrg, dmrg2, tdvp
+from mpskit_tpu_torch.algorithms import dmrg, dmrg2, tdvp, vumps
+from mpskit_tpu_torch.environments import infinite_ham
 from mpskit_tpu_torch.linalg.lanczos import eigsh_smallest
 from mpskit_tpu_torch.utils import sync, trace
 
@@ -51,12 +53,21 @@ def _tdvp():
                        mt.TDVP(expalg_m=M))
 
 
-RUNS = {"dmrg": _dmrg, "dmrg2": _dmrg2, "tdvp": _tdvp}
+def _vumps():
+    """One VUMPS iteration on a 3-site cell of the J1-J2 cylinder."""
+    gen = torch.Generator().manual_seed(0)
+    psi = mt.InfiniteMPS.random(3, 2, 8, torch.float64, "cpu", gen)
+    return mt.find_groundstate(psi, mt.j1_j2_model(width=3),
+                               mt.VUMPS(maxiter=1, verbosity=0))
+
+
+RUNS = {"dmrg": _dmrg, "dmrg2": _dmrg2, "tdvp": _tdvp, "vumps": _vumps}
 # the module attributes through which each algorithm calls its matvecs
 MATVECS = {
     "dmrg": [(dmrg, "ac_apply"), (dmrg, "ac_apply_fast")],
     "dmrg2": [(dmrg2, "ac2_apply")],
     "tdvp": [(tdvp, "ac_apply"), (tdvp, "c_apply")],
+    "vumps": [(vumps, "ac_apply"), (vumps, "c_apply")],
 }
 
 
@@ -148,6 +159,52 @@ def test_tdvp_step_nests_expm_with_m_matvecs():
         "exact", "zero-site"}
 
 
+def _count_gmres_operator(monkeypatch) -> list:
+    """Wrap the operator that the infinite walk hands each GMRES solve;
+    the returned list's one item counts its calls."""
+    calls = [0]
+    real = infinite_ham.linsolve_info
+
+    def counted(matvec, b, *args, **kwargs):
+        def mv(x):
+            calls[0] += 1
+            return matvec(x)
+        return real(mv, b, *args, **kwargs)
+
+    monkeypatch.setattr(infinite_ham, "linsolve_info", counted)
+    return calls
+
+
+def test_vumps_iteration_nests_envs_gmres_eigsh_matvec(monkeypatch):
+    """One iteration: the walk (`envs`, with its GMRES) and a site and a
+    bond eigensolve for each of the 3 sites, under the `iteration` root;
+    the final environments of the returned state open one more `envs`.
+    The `gmres_op` count is the number of calls a wrapper of the solves'
+    operators counts."""
+    applied = _count_gmres_operator(monkeypatch)
+    rec, _ = _recorded(_vumps)
+    by = _by_id(rec)
+    (it,) = [s for s in rec.spans if s.name == "iteration"]
+    assert it.parent is None and it.kind == "vumps"
+    envs = [s for s in rec.spans if s.name == "envs"]
+    assert len(envs) == 2 and {s.kind for s in envs} == {"infinite"}
+    assert [s.parent for s in envs].count(it.id) == 1
+    assert all(by[s.parent].name == "envs"
+               for s in rec.spans if s.name == "gmres")
+    assert rec.counts["gmres"] >= 2
+    eigsh = [s for s in rec.spans if s.name == "eigsh"]
+    assert len(eigsh) == 6 and all(s.parent == it.id for s in eigsh)
+    under = _children(rec, "eigsh")
+    kinds = collections.Counter()
+    for s in rec.spans:
+        if s.name == "matvec":
+            assert by[s.parent].name == "eigsh"
+            kinds[s.kind] += 1
+    assert set(kinds) == {"exact", "zero-site"}
+    assert all(under[(s.id, "matvec")] >= 1 for s in eigsh)
+    assert rec.counts["gmres_op"] == applied[0] > 0
+
+
 @pytest.mark.parametrize("name", sorted(RUNS))
 def test_sync_spans_equal_the_sync_counter(name):
     before = sync.count
@@ -200,8 +257,10 @@ def test_results_equal_with_recording_on_and_off(name):
     off = RUNS[name]()
     _, on = _recorded(RUNS[name])
     a, b = off[0], on[0]
-    for x, y in ((a.ALs, b.ALs), (a.ARs, b.ARs), (a.AC, b.AC)):
-        assert torch.equal(x, y)
+    fields = (("AL", "AR", "AC", "C") if isinstance(a, mt.InfiniteMPS)
+              else ("ALs", "ARs", "AC"))
+    for f in fields:
+        assert torch.equal(getattr(a, f), getattr(b, f))
 
 
 def test_spans_lie_on_the_profilers_clock():
