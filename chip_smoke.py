@@ -1183,8 +1183,10 @@ def _svd_times():
     truncation (255: a whole number of triplets), and whether its
     singular values equal those of torch's default bit for bit (which
     names the driver the default picked). `svd_truncated` takes the
-    "float32 gesvd" route. Returns {route: (ms, S err, U orthonormality
-    err, truncation err, equal to the default)}."""
+    "float64 Gram eigh" route for float32 on the card, forming only the
+    kept columns and re-orthonormalizing them by QR
+    (`tensors/ops.py::_svd_via_gram`). Returns {route: (ms, S err, U
+    orthonormality err, truncation err, equal to the default)}."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(10)

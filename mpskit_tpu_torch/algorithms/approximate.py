@@ -6,7 +6,7 @@ compression (O = None).
 
 The JAX package scans the sweeps and the IDMRG cycles; here they are host
 loops over the sites that write each output to its seat. FitDMRG2's split
-is the port's `svd_truncated` (cuSOLVER's `gesvd` on the card).
+is the port's `svd_truncated`.
 """
 
 from __future__ import annotations

@@ -6,11 +6,10 @@ decompositions keep static shapes: a rank-deficient panel keeps its full
 width and carries zeros, and a truncation zeroes singular values instead
 of dropping them.
 
-The JAX package's `_svd_via_gram` is not here: it works around a TPU
-compiler crash and runs only on that backend. `svd_truncated` calls
-`torch.linalg.svd`, the branch the JAX package runs on the CPU and GPU,
-with cuSOLVER's QR-based `gesvd` chosen on the card (see
-`svd_truncated`).
+`svd_truncated` splits float32 and complex64 matrices on the card through
+the Gram matrix (`_svd_via_gram`, the JAX package's TPU route, here in
+twice the input's precision) and every other matrix with
+`torch.linalg.svd` (see `svd_truncated`).
 """
 
 from __future__ import annotations
@@ -20,7 +19,7 @@ from typing import Optional
 
 import torch
 
-from ..utils.trace import span
+from ..utils.trace import count, span
 
 
 def qr_pos(M):
@@ -157,6 +156,43 @@ def notrunc() -> TruncationScheme:
     return TruncationScheme()
 
 
+def _svd_via_gram(M, k: int):
+    """The k largest singular triplets of M (m, n) from the Hermitian
+    eigendecomposition of its smaller Gram matrix, formed in twice M's
+    precision: (U (m, k'), S (k',), Vh (k', n), discarded_sq) in M's dtype,
+    k' = min(k, m, n), discarded_sq the sum of the other n - k' values of
+    S^2, summed in the wider type before the cut.
+
+    The products of float32 entries are exact in float64, so the Gram
+    matrix carries only its summation error, and S is resolved down to
+    about sqrt(n eps64) S0 (~1e-7 of S0 at n = 768). Only the kept columns
+    v and M v / s are formed, and Householder QR (`qr_pos`)
+    re-orthonormalizes each side: a column with s well above the floor
+    keeps its direction, one with s near zero (the padding of a
+    rank-deficient theta) comes out orthonormal instead of 0 / 0."""
+    m, n = M.shape
+    if n > m:
+        # M^H = U' S V'^H, so M = V' S U'^H
+        Ut, S, Vht, discarded_sq = _svd_via_gram(M.mH, k)
+        return Vht.mH, S, Ut.mH, discarded_sq
+    wide = torch.complex128 if M.is_complex() else torch.float64
+    M2 = M.to(wide)
+    lam, V = torch.linalg.eigh(M2.mH @ M2)
+    lam = torch.clamp(lam.flip(0), min=0.0)   # descending
+    k = min(k, n)
+    # cuSOLVER's `syevd` can return the vectors of a large cluster of zero
+    # eigenvalues (the null space of a padded theta) far from orthonormal
+    # (7e-2 on an H100); QR leaves the accurate ones as they are
+    V, _ = qr_pos(V[:, n - k:].flip(1))
+    S = torch.sqrt(lam[:k])
+    # below about sqrt(eps64) S0 the values are the Gram matrix's rounding
+    floor = torch.clamp(S[:1] * 1e-8, min=torch.finfo(lam.dtype).tiny)
+    U, _ = qr_pos((M2 @ V) / torch.maximum(S, floor))
+    rdtype = M.real.dtype
+    return (U.to(M.dtype), S.to(rdtype), V.mH.to(M.dtype),
+            torch.sum(lam[k:]).to(rdtype))
+
+
 def svd_truncated(M, Dmax: int, trunc: TruncationScheme = TruncationScheme()):
     """SVD of M (m, n) cut or zero-padded to the static width Dmax.
 
@@ -165,24 +201,38 @@ def svd_truncated(M, Dmax: int, trunc: TruncationScheme = TruncationScheme()):
     the discarded 2-norm fraction sqrt(sum of discarded S^2) / norm, a
     0-dim tensor (no host sync).
 
-    On the card the SVD is cuSOLVER's QR-based `gesvd`. The default there,
-    torch's and XLA's alike below 1024 x 1024, is the Jacobi `gesvdj`: on
-    an H100 it left the float32 vectors of a 768 x 768 two-site matrix
-    7.9e-4 from orthonormal (`chip_smoke.py`'s `[svd]` lines) and put a
-    float32 DMRG2 energy 4.7e-3 below the float64 one (PERF.md)."""
-    with span("svd"):
-        U, S, Vh = torch.linalg.svd(M, full_matrices=False,
-                                    driver="gesvd" if M.is_cuda else None)
-        k = S.shape[0]
-        if k >= Dmax:
-            U, Vh = U[:, :Dmax], Vh[:Dmax]
-            discarded_sq = torch.sum(S[Dmax:] ** 2)
-            S = S[:Dmax]
+    Two routes, chosen by M's device and dtype alone (the `svd` span's
+    `kind`):
+
+    - `gram`, float32 and complex64 on the card: `_svd_via_gram`, `eigh`
+      of the float64 / complex128 Gram matrix and QR of the kept columns,
+      counted by `trace.count("svd_gram")`. On the 768 x 768 float32
+      thetas of a spin-1 DMRG2 sweep on an H100, cuSOLVER's QR-based
+      `gesvd` took 35-82 ms a split, the card mostly idle behind its
+      host-driven bidiagonalization, and the Gram route 9.4-11.1 ms, with
+      S, U S Vh and the vectors closer to float64 `gesvd`'s than float32
+      `gesvd`'s were. It resolves S to about 1e-7 of S0, the rounding
+      floor of a float32 theta itself. The Jacobi `gesvdj`, torch's default below 1024 x 1024, left float32
+      vectors 7.9e-4 from orthonormal and put a float32 DMRG2 energy 4.7e-3
+      below the float64 one (PERF.md).
+    - `gesvd`, every other call: `torch.linalg.svd`, cuSOLVER's `gesvd` on
+      the card and LAPACK on the CPU. float64 and complex128 keep it, since
+      the Gram route would resolve only about sqrt(eps) of their S0."""
+    gram = M.is_cuda and M.dtype in (torch.float32, torch.complex64)
+    with span("svd", "gram" if gram else "gesvd"):
+        if gram:
+            count("svd_gram")
+            U, S, Vh, discarded_sq = _svd_via_gram(M, Dmax)
         else:
+            U, S, Vh = torch.linalg.svd(M, full_matrices=False,
+                                        driver="gesvd" if M.is_cuda else None)
+            discarded_sq = torch.sum(S[Dmax:] ** 2)
+            U, S, Vh = U[:, :Dmax], S[:Dmax], Vh[:Dmax]
+        k = S.shape[0]
+        if k < Dmax:
             U = torch.nn.functional.pad(U, (0, Dmax - k))
             Vh = torch.nn.functional.pad(Vh, (0, 0, 0, Dmax - k))
             S = torch.nn.functional.pad(S, (0, Dmax - k))
-            discarded_sq = torch.zeros((), dtype=S.dtype, device=S.device)
 
         keep = torch.ones(Dmax, dtype=torch.bool, device=S.device)
         if trunc.dim is not None and trunc.dim < Dmax:

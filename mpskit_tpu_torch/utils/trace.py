@@ -23,7 +23,9 @@ Each span sits inside the function whose work it measures:
             two-site; kernels/ac_apply.py::ac_apply_bf16 on the card,
             `kind` bf16 (K1's fused tiers) or bf16-general (its general
             path)
-    svd     tensors/ops.py::svd_truncated
+    svd     tensors/ops.py::svd_truncated, `kind` gram (float32 and
+            complex64 on the card: `eigh` of the float64 Gram matrix, its
+            `qr` inside) or gesvd (every other call)
     qr      tensors/ops.py::qr_pos (an LQ is qr_pos of the adjoint) and
             cholesky_qr2
     push    transfermatrix/transfer.py: an MPO environment push
@@ -37,6 +39,8 @@ instead: `count(name, n)` adds n to `rec.counts[name]` with no span
 (`linalg/lanczos.py` counts a replayed factorization's m matvecs). A
 GMRES solve's operator applications are counted the same way, with no
 span each: `gmres_op` (`linalg/gmres.py`, n at the end of each solve).
+`svd_gram` counts the splits that take the Gram route, once each
+(`tensors/ops.py::svd_truncated`).
 
 The program's counters are plain module integers beside the code they
 count: `utils.sync.count` (host syncs), `kernels.ac_apply.launches`

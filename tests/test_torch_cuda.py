@@ -272,6 +272,49 @@ def test_svd_truncated_on_card_matches_cpu():
         assert float(((U * S) @ Vh - (Ur * Sr) @ Vhr).abs().max()) <= 1e-5
 
 
+def _isometry_err(A, left: bool):
+    """How far A (D, d, D) is from an isometry on its support: A^dag A
+    (left) or A A^dag (right) against the diagonal of ones and zeros it
+    rounds to."""
+    G = (torch.einsum("lpa,lpb->ab", A.conj(), A) if left
+         else torch.einsum("apr,bpr->ab", A, A.conj()))
+    live = torch.diagonal(G).real.round()
+    assert float(live.sum()) >= 1
+    return float((G - torch.diag(live).to(G.dtype)).abs().max())
+
+
+@pytest.mark.cuda
+def test_float32_dmrg2_splits_on_card_take_the_gram_route():
+    """The two-site run of `test_dmrg2_on_card_matches_float64` recorded:
+    every float32 split on the card is an `svd` span of kind `gram`, each
+    counted once by `svd_gram`, while every float64 split keeps `gesvd`;
+    the float32 energy within 1e-5 relative of the float64 one, and the
+    last sweep's AL and AR isometries on their support to 1e-5."""
+    from mpskit_tpu_torch.utils import trace
+
+    _need_card()
+    L, D = 16, 64
+    H = heisenberg_XXX(spin=1)
+    energies = {}
+    for dtype, tol, kind in ((torch.float64, 1e-10, "gesvd"),
+                             (torch.float32, 0.0, "gram")):
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        psi = FiniteMPS.random(L, 3, D, dtype, "cuda", gen)
+        with trace.recording() as rec:
+            psi, envs, _ = find_groundstate(
+                psi, H, DMRG2(tol=tol, maxiter=8, krylovdim=10,
+                              eig_maxrestarts=2, trscheme=truncdim(D),
+                              verbosity=0))
+        kinds = [s.kind for s in rec.spans if s.name == "svd"]
+        assert kinds and set(kinds) == {kind}
+        assert rec.counts["svd_gram"] == (len(kinds) if kind == "gram" else 0)
+        energies[dtype] = float(expectation_value(psi, H, envs=envs))
+    e64, e32 = energies[torch.float64], energies[torch.float32]
+    assert abs(e32 - e64) <= 1e-5 * abs(e64)
+    assert max(_isometry_err(psi.ALs[i], True) for i in range(L - 1)) <= 1e-5
+    assert max(_isometry_err(psi.ARs[i], False) for i in range(1, L)) <= 1e-5
+
+
 def _tfim_quench_start(device, dtype, L=8, D=16):
     from mpskit_tpu_torch import transverse_field_ising
 

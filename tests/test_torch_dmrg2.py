@@ -122,6 +122,92 @@ def test_svd_truncated_matches_jax(scheme, Dmax):
         assert np.all(live >= (_np(S) > 0))
 
 
+def _graded(m, n, s, seed):
+    """An (m, n) matrix with singular values s between random orthonormal
+    factors."""
+    rng = np.random.default_rng(seed)
+    k = len(s)
+    U = np.linalg.qr(rng.standard_normal((m, k)))[0]
+    V = np.linalg.qr(rng.standard_normal((n, k)))[0]
+    return (U * s) @ V.T
+
+
+# two-fold multiplets split by 1e-3 of themselves, as the Schmidt values of
+# the Haldane chain nearly are: pair j at 10^(-4 j / 16)
+_PAIRS = np.repeat(10.0 ** (-4.0 * np.arange(16) / 16), 2) * np.tile(
+    [1.0, 1.0 - 1e-3], 16)
+
+GRAM_CASES = {
+    # name: (matrix, kept columns)
+    "square": (lambda: _graded(40, 40, np.logspace(0, -6, 40), 2), 24),
+    "tall": (lambda: _graded(48, 30, np.logspace(0, -6, 30), 3), 20),
+    "wide": (lambda: _graded(30, 48, np.logspace(0, -6, 30), 4), 20),
+    "padded": (lambda: _padded_rank_deficient(np.float64), 12),
+    "pairs_cut_outside": (lambda: _graded(40, 36, _PAIRS, 5), 20),
+    "pairs_cut_inside": (lambda: _graded(40, 36, _PAIRS, 5), 21),
+}
+
+
+@pytest.mark.parametrize("case", list(GRAM_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_svd_via_gram_matches_float64_lapack(dtype, case):
+    """The Gram route that `svd_truncated` takes for float32 and complex64
+    on the card, run on the CPU, against LAPACK's float64 SVD of the same
+    matrix: S and the discarded weight within 1e-5 of S0 = 1, the kept
+    U S Vh within 1e-5, every returned column of U and row of Vh
+    orthonormal to 1e-5 (those of the exactly zero values of the padded
+    matrix too), no NaN. The multiplets are split by 1e-3 of themselves:
+    a cut through an exactly degenerate one has no unique U S Vh for any
+    SVD."""
+    make, k = GRAM_CASES[case]
+    M = make()
+    if dtype == torch.complex64:
+        rng = np.random.default_rng(6)
+        M = M * np.exp(1j * rng.uniform(0, 2 * np.pi, M.shape[1]))
+    M = torch.from_numpy(M).to(dtype)
+    wide = torch.complex128 if dtype == torch.complex64 else torch.float64
+    Ur, Sr, Vhr = torch.linalg.svd(M.to(wide), full_matrices=False)
+    U, S, Vh, disc = tops._svd_via_gram(M, k)
+    kk = min(k, *M.shape)
+    assert U.dtype == Vh.dtype == dtype and S.dtype == M.real.dtype
+    assert U.shape == (M.shape[0], kk) and Vh.shape == (kk, M.shape[1])
+    assert all(torch.isfinite(t).all() for t in (U, S, Vh, disc))
+    assert float((S.double() - Sr[:kk]).abs().max()) <= 1e-5
+    err = torch.sqrt(disc.double() / (torch.sum(S.double() ** 2) + disc))
+    err_ref = torch.sqrt(torch.sum(Sr[kk:] ** 2) / torch.sum(Sr ** 2))
+    assert abs(float(err) - float(err_ref)) <= 1e-5
+    USV = (U.to(wide) * S.double()) @ Vh.to(wide)
+    USV_ref = (Ur[:, :kk] * Sr[:kk]) @ Vhr[:kk]
+    assert float((USV - USV_ref).abs().max()) <= 1e-5
+    eye = torch.eye(kk, dtype=wide)
+    assert float((U.to(wide).mH @ U.to(wide) - eye).abs().max()) <= 1e-5
+    assert float((Vh.to(wide) @ Vh.to(wide).mH - eye).abs().max()) <= 1e-5
+
+
+def test_svd_via_gram_repairs_a_skewed_null_cluster(monkeypatch):
+    """An `eigh` whose vectors of the zero eigenvalues (the padded
+    matrix's null space) come back 1e-1 from orthonormal, as cuSOLVER's
+    `syevd` returned them for a padded DMRG2 theta on an H100: the Gram
+    route's Vh rows still orthonormal to 1e-5 and U S Vh unchanged."""
+    eigh = torch.linalg.eigh
+
+    def skewed(G):
+        lam, V = eigh(G)
+        null = int((lam < 1e-12 * lam[-1]).sum())
+        mix = torch.eye(null, dtype=V.dtype) + 0.1 * torch.ones(
+            null, null, dtype=V.dtype)
+        return lam, torch.cat([V[:, :null] @ mix, V[:, null:]], 1)
+
+    M = torch.from_numpy(_padded_rank_deficient(np.float64)).float()
+    monkeypatch.setattr(torch.linalg, "eigh", skewed)
+    U, S, Vh, _ = tops._svd_via_gram(M, 10)
+    Ur, Sr, Vhr = torch.linalg.svd(M.double(), full_matrices=False)
+    eye = torch.eye(10, dtype=torch.float64)
+    assert float((Vh.double() @ Vh.double().T - eye).abs().max()) <= 1e-5
+    assert float((U.double().T @ U.double() - eye).abs().max()) <= 1e-5
+    assert float(((U * S) @ Vh - M).abs().max()) <= 1e-5
+
+
 @pytest.mark.parametrize("dtype", [np.float64, np.complex128])
 def test_null_spaces_match_jax(dtype):
     """The projectors VL VL^dag and VR^dag VR against JAX, VL^dag A = 0,
