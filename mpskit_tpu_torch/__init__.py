@@ -95,8 +95,9 @@ from .linalg.gmres import linsolve, linsolve_cg
 from .linalg.lanczos import eigsh_smallest, lanczos_groundstate
 from .models import (
     bilinear_biquadratic_model, bose_hubbard, free_fermions, heisenberg_XXX,
-    heisenberg_XXZ, heisenberg_XYZ, hubbard, j1_j2_model, kitaev_bdg_energy,
-    kitaev_chain, quantum_clock, quantum_potts, transverse_field_ising,
+    heisenberg_XXZ, heisenberg_XYZ, hubbard, hubbard_model, j1_j2_model,
+    kitaev_bdg_energy, kitaev_chain, quantum_clock, quantum_potts,
+    transverse_field_ising,
     transverse_field_ising_lattice, transverse_field_ising_parity,
     xx_chain_with_field, xy_model,
 )

@@ -25,6 +25,7 @@ from ..states.infinitemps import InfiniteMPS
 from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog
 from ..utils.sync import to_host
+from ..utils.trace import span
 from .vumps import VUMPS, _vumps_iteration_impl
 
 
@@ -75,7 +76,14 @@ def scan_groundstate_vumps(psis, Hs, alg: VUMPS = VUMPS()) -> ScanResult:
     are fixed-point no-ops up to solver noise); then each member is
     re-canonicalized and its environments recomputed, as
     `find_groundstate_vumps` closes. `energies` and `eps` are on the
-    states' device."""
+    states' device.
+
+    Each lockstep iteration is one `scan` span (kind vumps) holding the
+    members' `iteration` spans. After it, `alg.finalize` (when set) is
+    called as finalize(iteration, members, Hamiltonians) with the lists of
+    the members' states and Hamiltonians; a returned list of states
+    replaces the members, as `find_groundstate_vumps` takes a returned
+    state."""
     if not isinstance(psis, InfiniteMPS):
         psis = stack_states(list(psis))
     if not isinstance(Hs, MPOHamiltonian):
@@ -95,11 +103,16 @@ def scan_groundstate_vumps(psis, Hs, alg: VUMPS = VUMPS()) -> ScanResult:
     with matmul_precision():
         for it in range(1, alg.maxiter + 1):
             inner_tol = updatetol(eps_max, it)
-            for b in range(B):
-                members[b], eps_b[b], env_guess[b], _ = _vumps_iteration_impl(
-                    members[b], Hb[b], alg.krylovdim, alg.eig_maxrestarts,
-                    alg.gauge_tol, 1e-12, inner_tol, env_guess=env_guess[b])
-            eps_max = max(to_host(*eps_b))
+            with span("scan", "vumps"):
+                for b in range(B):
+                    members[b], eps_b[b], env_guess[b], _ = \
+                        _vumps_iteration_impl(
+                            members[b], Hb[b], alg.krylovdim,
+                            alg.eig_maxrestarts, alg.gauge_tol, 1e-12,
+                            inner_tol, env_guess=env_guess[b])
+                eps_max = max(to_host(*eps_b))
+            if alg.finalize is not None:
+                members = list(alg.finalize(it, members, Hb) or members)
             if alg.verbosity >= VERBOSE_ITER:
                 log.conv(it, 0.0, eps_max)
             if eps_max < alg.tol:

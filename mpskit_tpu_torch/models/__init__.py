@@ -7,7 +7,7 @@ from .hamiltonians import (
     transverse_field_ising_lattice, transverse_field_ising_parity,
     xx_chain_with_field, xy_model,
 )
-from .lattices import j1_j2_model
+from .lattices import hubbard_model, j1_j2_model
 from .spins import pauli, spinmatrices
 from .statmech import (
     classical_ising, finite_classical_ising, hard_hexagon,

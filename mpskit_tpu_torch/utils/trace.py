@@ -14,6 +14,8 @@ Each span sits inside the function whose work it measures:
     step    algorithms/tdvp.py: one finite TDVP step
     iteration  algorithms/vumps.py::_vumps_iteration_impl, `kind` vumps:
             one VUMPS iteration
+    scan    algorithms/paramscan.py::scan_groundstate_vumps, `kind` vumps:
+            one lockstep iteration, the members' `iteration` spans inside
     envs    environments/infinite_ham.py::hamiltonian_environments, `kind`
             infinite: the infinite environments' level-by-level walk
     gmres   linalg/gmres.py::linsolve_info: one linear solve

@@ -49,7 +49,8 @@ def _k1_inputs(D, d, w, seed):
                                    (130, 2, 5), (128, 2, 9), (128, 3, 2),
                                    (100, 3, 4), (64, 2, 13), (70, 3, 9),
                                    (130, 4, 3), (768, 2, 26), (768, 2, 35),
-                                   (200, 2, 26), (64, 2, 60), (64, 4, 45)])
+                                   (200, 2, 26), (64, 2, 60), (64, 4, 45),
+                                   (768, 4, 26)])
 def test_k1_matches_plain_on_card(D, d, w):
     """K1 against its plain version (same rounding points: 1e-3 bounds the
     f32 summation-order differences) at the main path's width, at D that
@@ -59,9 +60,9 @@ def test_k1_matches_plain_on_card(D, d, w):
     K1_TIERS, and on the general path that every other (w, d) takes (past
     the widest tier at d = 2 and 3, and at d = 4), there also at the J1-J2
     cylinder's shapes (D=768 at the program's w=26 and the reference's
-    w=35), at D=200, off the edge of its 128-row and 96-wide tiles, and at
-    widths whose middle keeps one t1 buffer (w=60) or none (w=45, d=4) in
-    shared memory."""
+    w=35) and the Hubbard cylinder's (D=768, d=4, w=26), at D=200, off
+    the edge of its 128-row and 96-wide tiles, and at widths whose middle
+    keeps one t1 buffer (w=60) or none (w=45, d=4) in shared memory."""
     _need_card()
     GL, W, GR, x = _k1_inputs(D, d, w, seed=D)
     before = k1.launches

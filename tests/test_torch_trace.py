@@ -1,6 +1,6 @@
 """The port's spans (mpskit_tpu_torch/utils/trace.py): what a recording
-holds after a tiny DMRG, DMRG2, TDVP or VUMPS run on the CPU, how the
-spans nest,
+holds after a tiny DMRG, DMRG2, TDVP, VUMPS or VUMPS scan run on the
+CPU, how the spans nest, the scan's finalize hook,
 that they agree with the program's counters and with torch.profiler's
 clock, and that recording changes no result. One test needs a CUDA card
 (marker `cuda`) and skips without one. The file imports no jax."""
@@ -61,13 +61,27 @@ def _vumps():
                                mt.VUMPS(maxiter=1, verbosity=0))
 
 
-RUNS = {"dmrg": _dmrg, "dmrg2": _dmrg2, "tdvp": _tdvp, "vumps": _vumps}
+def _scan(finalize=None, maxiter=2):
+    """A lockstep VUMPS scan of the TFIM at g = 1.2 and 2.0 (one-site
+    cells, D=6) for `maxiter` iterations."""
+    psis = [mt.InfiniteMPS.random(1, 2, 6, torch.float64, "cpu",
+                                  torch.Generator().manual_seed(30 + b))
+            for b in range(2)]
+    Hs = [mt.transverse_field_ising(g=g) for g in (1.2, 2.0)]
+    return mt.scan_groundstate_vumps(
+        psis, Hs, mt.VUMPS(maxiter=maxiter, tol=0.0, verbosity=0,
+                           finalize=finalize))
+
+
+RUNS = {"dmrg": _dmrg, "dmrg2": _dmrg2, "tdvp": _tdvp, "vumps": _vumps,
+        "scan": lambda: (_scan().psis,)}
 # the module attributes through which each algorithm calls its matvecs
 MATVECS = {
     "dmrg": [(dmrg, "ac_apply"), (dmrg, "ac_apply_fast")],
     "dmrg2": [(dmrg2, "ac2_apply")],
     "tdvp": [(tdvp, "ac_apply"), (tdvp, "c_apply")],
     "vumps": [(vumps, "ac_apply"), (vumps, "c_apply")],
+    "scan": [(vumps, "ac_apply"), (vumps, "c_apply")],
 }
 
 
@@ -203,6 +217,44 @@ def test_vumps_iteration_nests_envs_gmres_eigsh_matvec(monkeypatch):
     assert set(kinds) == {"exact", "zero-site"}
     assert all(under[(s.id, "matvec")] >= 1 for s in eigsh)
     assert rec.counts["gmres_op"] == applied[0] > 0
+
+
+def test_scan_iteration_nests_its_members_and_calls_finalize():
+    """Three lockstep iterations of a two-member scan: one root `scan`
+    span (kind vumps) each, holding the two members' `iteration` spans,
+    and one finalize call after each, with the iteration count and the
+    members' states and Hamiltonians, once its span has closed."""
+    calls = []
+
+    def finalize(it, members, Hs):
+        calls.append((it, len(members), len(Hs), trace._open._stack[:]))
+
+    rec, res = _recorded(lambda: _scan(finalize, 3))
+    scans = [s for s in rec.spans if s.name == "scan"]
+    assert len(scans) == res.iterations == 3
+    assert all(s.parent is None and s.kind == "vumps" for s in scans)
+    under = _children(rec, "scan")
+    its = [s for s in rec.spans if s.name == "iteration"]
+    assert len(its) == 6 and all(under[(s.id, "iteration")] == 2
+                                 for s in scans)
+    assert [c[:3] for c in calls] == [(1, 2, 2), (2, 2, 2), (3, 2, 2)]
+    assert all(c[3] == [] for c in calls)
+
+
+def test_scan_results_unchanged_by_its_hook():
+    """A hook that returns nothing, or the members it was given, leaves
+    every energy and tensor as the run without one; a returned list
+    replaces the members (both members the first one's state)."""
+    plain = _scan(maxiter=3)
+    for hook in (lambda it, m, H: None, lambda it, m, H: m):
+        res = _scan(hook, 3)
+        assert torch.equal(res.energies, plain.energies)
+        for f in ("AL", "AR", "AC", "C"):
+            assert torch.equal(getattr(res.psis, f),
+                               getattr(plain.psis, f))
+    res = _scan(lambda it, m, H: [m[0], m[0]] if it == 3 else None, 3)
+    assert torch.equal(res.psis.AL[0], res.psis.AL[1])
+    assert not torch.equal(res.psis.AL[1], plain.psis.AL[1])
 
 
 @pytest.mark.parametrize("name", sorted(RUNS))
