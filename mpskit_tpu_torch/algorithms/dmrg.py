@@ -29,7 +29,7 @@ from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog
 from ..utils.sync import to_host
 from ..utils.trace import span
-from .derivatives import ac_apply, ac_apply_fast
+from .derivatives import ac_apply, ac_apply_fast, ac_operands
 from .unionalg import Chainable
 
 
@@ -89,14 +89,15 @@ def _solve_site(GL, W, GR, AC, m, restarts, inner_tol, reorth, mask=None,
         mv, fast = split.site_matvecs(GL, W, GR)
         return eigsh_smallest(mv, AC, m, restarts, inner_tol, reorth=reorth,
                               matvec_fast=fast)
+    ops = ac_operands(GL, W, GR)  # laid out once for the solve's matvecs
     if mask is None:
         return eigsh_smallest(
-            lambda x: ac_apply(GL, W, GR, x), AC, m, restarts, inner_tol,
-            reorth=reorth,
+            lambda x: ac_apply(GL, W, GR, x, prepared=ops), AC, m, restarts,
+            inner_tol, reorth=reorth,
             matvec_fast=lambda x: ac_apply_fast(GL, W, GR, x))
     return eigsh_smallest(
-        lambda x: mask * ac_apply(GL, W, GR, mask * x), mask * AC, m,
-        restarts, inner_tol, reorth=reorth,
+        lambda x: mask * ac_apply(GL, W, GR, mask * x, prepared=ops),
+        mask * AC, m, restarts, inner_tol, reorth=reorth,
         matvec_fast=lambda x: mask * ac_apply_fast(GL, W, GR, mask * x))
 
 

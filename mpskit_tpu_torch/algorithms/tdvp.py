@@ -54,7 +54,10 @@ from ..tensors.ops import (
 from ..transfermatrix.transfer import transfer_left_mpo, transfer_right_mpo
 from ..utils.logging import logger
 from ..utils.trace import span
-from .derivatives import ac2_apply, ac_apply, c_apply
+from .derivatives import (
+    ac2_apply, ac_apply, ac_operands, ac_prepared, c_apply, c_operands,
+    c_prepared,
+)
 
 @dataclasses.dataclass(frozen=True)
 class TDVP:
@@ -120,15 +123,17 @@ def _timestep_infinite(psi: InfiniteMPS, H, dt, m: int, gauge_tol: float,
     ACs, Cs, errs = [], [], []
     for i in range(L):
         GL, W, GR = envs.GLs[i], Ws[i], envs.GRs[i]
-        AC, err = expm_multiply_err(lambda x: ac_apply(GL, W, GR, x),
-                                    psi.AC[i], tau, m)
+        ops = ac_operands(GL, W, GR)
+        AC, err = expm_multiply_err(
+            lambda x: ac_apply(GL, W, GR, x, prepared=ops), psi.AC[i], tau, m)
         ACs.append(AC)
         errs.append(err)
     for i in range(L):
         # bond i (right of site i) pairs GLs[i+1] with GRs[i]
         GL, GR = envs.GLs[(i + 1) % L], envs.GRs[i]
-        C, err = expm_multiply_err(lambda x: c_apply(GL, GR, x), psi.C[i],
-                                   tau, m)
+        ops = c_operands(GL, GR)
+        C, err = expm_multiply_err(
+            lambda x: c_apply(GL, GR, x, prepared=ops), psi.C[i], tau, m)
         Cs.append(C)
         errs.append(err)
     ACs, Cs = torch.stack(ACs), torch.stack(Cs)
@@ -155,17 +160,18 @@ def _timestep_infinite(psi: InfiniteMPS, H, dt, m: int, gauge_tol: float,
 # ----------------------------------------------------------------------------
 
 def _site_op(split, GL, W, GR):
-    """The site matvec of an exponential: a `Bound`, which the card replays
-    as a CUDA graph, or with a BondSplit the split's eager closure (a graph
-    does not hold the collectives)."""
+    """The site matvec of an exponential: a `Bound` over the operands laid
+    out once (`ac_operands`), which the card replays as a CUDA graph, or
+    with a BondSplit the split's eager closure (a graph does not hold the
+    collectives)."""
     if split is None:
-        return Bound(ac_apply, GL, W, GR)
+        return Bound(ac_prepared, *ac_operands(GL, W, GR))
     return lambda x: split.ac_apply(GL, W, GR, x)
 
 
 def _bond_op(split, GL, GR):
     if split is None:
-        return Bound(c_apply, GL, GR)
+        return Bound(c_prepared, *c_operands(GL, GR))
     return lambda x: split.c_apply(GL, GR, x)
 
 
@@ -495,8 +501,9 @@ def _timestep_finite2(ALs, ARs, AC, Ws, GRs, m: int, trscheme, dt=0.01):
         if i == L - 2:
             errs.append(errT)
         else:
+            ops = ac_operands(GL, W2, GR)
             AC, errB = expm_multiply_err(
-                lambda x: ac_apply(GL, W2, GR, x), AC, -tau, m)
+                lambda x: ac_apply(GL, W2, GR, x, prepared=ops), AC, -tau, m)
             errs.append(max(errT, errB))
 
     # ---- right to left over bonds (i, i+1), i = L-2..0 ----
@@ -518,8 +525,10 @@ def _timestep_finite2(ALs, ARs, AC, Ws, GRs, m: int, trscheme, dt=0.01):
         if i == 0:
             errs.append(errT)
         else:
+            ops = ac_operands(GLi, W1, GR)
             AC, errB = expm_multiply_err(
-                lambda x: ac_apply(GLi, W1, GR, x), AC, -tau, m)
+                lambda x: ac_apply(GLi, W1, GR, x, prepared=ops), AC, -tau,
+                m)
             errs.append(max(errT, errB))
     GRs_new[0] = GRs_new[1] = GRs_new[2]
     return ALs_new, ARs_new, AC, GRs_new, max(errs)

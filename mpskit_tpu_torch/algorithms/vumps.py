@@ -29,7 +29,7 @@ from ..utils.dynamictols import updatetol
 from ..utils.logging import IterLog, logger
 from ..utils.sync import to_host
 from ..utils.trace import span
-from .derivatives import ac_apply, c_apply
+from .derivatives import ac_apply, ac_operands, c_apply, c_operands
 from .unionalg import Chainable
 
 
@@ -64,8 +64,9 @@ def _solve_acs(envs, Ws, ACs, m: int, restarts: int, inner_tol: float,
         GL, W, GR = envs.GLs[i], Ws[i], envs.GRs[i]
         if split is not None:
             GR = split.local(GR)
+        ops = ac_operands(GL, W, GR) if split is None else None
         res = eigsh_smallest(
-            (lambda x: ac_apply(GL, W, GR, x)) if split is None
+            (lambda x: ac_apply(GL, W, GR, x, prepared=ops)) if split is None
             else (lambda x: split.ac_apply(GL, W, GR, x)), ACs[i], m,
             restarts, inner_tol, reorth="local1")
         out.append(res.eigenvector)
@@ -82,8 +83,9 @@ def _solve_cs(envs, Cs, m: int, restarts: int, inner_tol: float,
         GL, GR = envs.GLs[(i + 1) % L], envs.GRs[i]
         if split is not None:
             GR = split.local(GR)
+        ops = c_operands(GL, GR) if split is None else None
         res = eigsh_smallest(
-            (lambda x: c_apply(GL, GR, x)) if split is None
+            (lambda x: c_apply(GL, GR, x, prepared=ops)) if split is None
             else (lambda x: split.c_apply(GL, GR, x)), Cs[i], m, restarts,
             inner_tol, reorth="local1")
         out.append(res.eigenvector)

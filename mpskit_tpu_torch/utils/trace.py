@@ -42,7 +42,9 @@ instead: `count(name, n)` adds n to `rec.counts[name]` with no span
 GMRES solve's operator applications are counted the same way, with no
 span each: `gmres_op` (`linalg/gmres.py`, n at the end of each solve).
 `svd_gram` counts the splits that take the Gram route, once each
-(`tensors/ops.py::svd_truncated`).
+(`tensors/ops.py::svd_truncated`), and `matvec_prepared` the exact
+one- and zero-site matvecs given operands laid out once for their solve
+(`algorithms/derivatives.py`, beside their `matvec` spans).
 
 The program's counters are plain module integers beside the code they
 count: `utils.sync.count` (host syncs), `kernels.ac_apply.launches`

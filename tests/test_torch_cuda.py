@@ -5,6 +5,11 @@ not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 """
 
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -135,6 +140,79 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take():
         k1.ac_apply_bf16(GL, W, GR, x.transpose(0, 2))
     with pytest.raises(ValueError):
         k1.ac_apply_bf16(GL.cpu(), W, GR, x)
+
+
+# the profiled call of the test below, run in a process of its own: in
+# one process, this CUDA profiling session left a later one short of
+# device events (tests/test_torch_trace.py's span test, on the H100)
+_PREPARED_PROFILE = """
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, sys.argv[1])
+from mpskit_tpu_torch.algorithms import derivatives
+from mpskit_tpu_torch.config import matmul_precision
+
+D, d, w = 256, 4, 26
+gen = torch.Generator(device="cuda").manual_seed(27)
+GL, GR, W, x = (torch.randn(s, generator=gen, device="cuda")
+                for s in ((w, D, D), (w, D, D), (w, w, d, d), (D, d, D)))
+GL, GR = GL / D, GR / D
+with matmul_precision():
+    ops = derivatives.ac_operands(GL, W, GR)
+    derivatives.ac_apply(GL, W, GR, x, prepared=ops)  # library handles
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        y = derivatives.ac_apply(GL, W, GR, x, prepared=ops)
+        torch.cuda.synchronize()
+ref = derivatives.ac_apply(*(t.double() for t in (GL, W, GR, x)))
+print(json.dumps({
+    "names": [e.key.lower() for e in prof.key_averages()],
+    "err": float((y.double() - ref).norm() / ref.norm())}))
+"""
+
+
+@pytest.mark.cuda
+def test_prepared_ac_apply_on_card_launches_gemms_and_no_copy():
+    """The exact float32 one-site product at the Hubbard cylinder's d and w
+    (D=256, d=4, w=26), its operands laid out once (`ac_operands`): under
+    torch.profiler the call launches GEMMs and no elementwise or copy
+    kernel, and it matches the float64 product within float32 rounding."""
+    _need_card()
+    root = str(Path(__file__).resolve().parent.parent)
+    run = subprocess.run([sys.executable, "-c", _PREPARED_PROFILE, root],
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+    out = json.loads(run.stdout.strip().splitlines()[-1])
+    names = out["names"]
+    assert any("gemm" in n or "cutlass" in n for n in names), names
+    assert not [n for n in names if "elementwise" in n or "copy" in n
+                or "memcpy" in n], names
+    assert out["err"] <= 1e-5
+
+
+@pytest.mark.cuda
+def test_prepared_site_operator_replays_bit_for_bit_on_card():
+    """TDVP's one-site operator (`tdvp._site_op`: a Bound over the operands
+    laid out once) at the TDVP cell's widths (D=256, d=2, w=3, complex64):
+    its Lanczos factorization replayed as a CUDA graph equals the eager
+    factorization of the same operator bit for bit."""
+    _need_card()
+    from mpskit_tpu_torch.algorithms import tdvp
+    from mpskit_tpu_torch.linalg.graphs import Bound
+    from mpskit_tpu_torch.linalg.lanczos import lanczos_factorize
+
+    GL, W, GR, x = (t.to(torch.complex64)
+                    for t in _k1_inputs(256, 2, 3, seed=28))
+    op = tdvp._site_op(None, GL, W, GR)
+    assert isinstance(op, Bound) and op.fn is derivatives.ac_prepared
+    with matmul_precision():
+        Vg, ag, bg, ng = lanczos_factorize(op, x, 20)
+        Vg = Vg.clone()
+        Ve, ae, be, ne = lanczos_factorize(lambda v: op(v), x, 20)
+    assert ng == ne
+    assert np.array_equal(ag, ae) and np.array_equal(bg, be)
+    assert torch.equal(Vg, Ve)
 
 
 @pytest.mark.cuda

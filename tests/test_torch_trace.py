@@ -79,7 +79,8 @@ RUNS = {"dmrg": _dmrg, "dmrg2": _dmrg2, "tdvp": _tdvp, "vumps": _vumps,
 MATVECS = {
     "dmrg": [(dmrg, "ac_apply"), (dmrg, "ac_apply_fast")],
     "dmrg2": [(dmrg2, "ac2_apply")],
-    "tdvp": [(tdvp, "ac_apply"), (tdvp, "c_apply")],
+    "tdvp": [(tdvp, "ac_apply"), (tdvp, "c_apply"), (tdvp, "ac_prepared"),
+             (tdvp, "c_prepared")],
     "vumps": [(vumps, "ac_apply"), (vumps, "c_apply")],
     "scan": [(vumps, "ac_apply"), (vumps, "c_apply")],
 }
@@ -270,9 +271,9 @@ def test_matvec_spans_equal_the_calls_a_wrapper_counts(name, monkeypatch):
     for mod, attr in MATVECS[name]:
         fn = getattr(mod, attr)
 
-        def counted(*args, _fn=fn, _attr=attr):
+        def counted(*args, _fn=fn, _attr=attr, **kwargs):
             calls[_attr] += 1
-            return _fn(*args)
+            return _fn(*args, **kwargs)
 
         monkeypatch.setattr(mod, attr, counted)
     rec, _ = _recorded(RUNS[name])
